@@ -1,0 +1,6 @@
+// Fused-iteration superkernel instantiated for the stencil3d7 SPMV plug-in
+// (see fused_iter.cuh for what it computes, the Pallas kernel it replaces
+// and the bound it faces).
+#include "fused_iter.cuh"
+
+FI_DEFINE_ENTRY(fused_iter_stencil3d7, fi::SPMV_3D7)
