@@ -17,7 +17,14 @@ Phases, each printed as one JSON line; every phase raises on failure:
    ``stencil3d7`` (``use_kernel=True``) against the plain operators;
 6. small reference: the card's fused solve of the smoke-size problem
    against the port's CPU path;
-7. timings per kernel (CUDA events), their bounds and yardsticks, and a
+7. the unstructured ice sheet (``icesheet3d.config()``, 500 000 FEM
+   nodes, ELL, RCM-ordered): ``ell_spmv`` and the superkernel's ELL
+   plug-in against their plain versions at its shape, the fused p(2)-CG
+   solve (Jacobi in place of the config's block-Jacobi, which is not
+   ported), fused vs plain vector phase, an unfused solve through the
+   ELL kernel against the plain operator, and the smoke-size ice sheet
+   on the card against the port's CPU path;
+8. timings per kernel (CUDA events), their bounds and yardsticks, and a
    profiler split of one solve iteration.
 
 It then prints the card's name and power limit, a ``kernels`` line, and
@@ -27,6 +34,7 @@ without the repository beside it, it exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import subprocess
@@ -82,11 +90,11 @@ def main() -> int:
 
     import numpy as np
 
-    from repro_torch.configs import icesheet3d_stencil, laplace2d
+    from repro_torch.configs import icesheet3d, icesheet3d_stencil, laplace2d
     from repro_torch.configs.problems import build_operator
     from repro_torch.core.chebyshev import shifts_for_operator
     from repro_torch.kernels import _build, fused_iter as fi, ops as kops
-    from repro_torch.kernels import ref, stencil_spmv
+    from repro_torch.kernels import ell_spmv, ref, stencil_spmv
     from repro_torch.linalg import (DiagonalOp, JacobiPrec, Stencil2D5,
                                     Stencil3D7, Stencil3D27,
                                     laplacian_2d_spectrum)
@@ -101,6 +109,52 @@ def main() -> int:
     def randn(*shape):
         return torch.randn(*shape, generator=gen, dtype=torch.float64,
                            device=dev)
+
+    def phase_scal(l):
+        """A random scalar vector for one vector phase, its divisors kept
+        away from 0."""
+        IS = fi.scal_layout(l)
+        scal = randn(IS["size"])
+        scal[IS["dlt_safe"]] = 1.25
+        scal[IS["eta_new_safe"]] = 0.75
+        scal[IS["eta0_safe"]] = 1.5
+        return scal
+
+    def superkernel_vs_plain(operators):
+        """The superkernel against the plain vector phase for each
+        operator, l in {1, 2, 3}, both recurrences, Jacobi and identity,
+        at several cycle positions: (rows' max abs diff, partials' max
+        |diff| / sum |m u|, cases)."""
+        row_err, part_err, cases = 0.0, 0.0, 0
+        for op in operators:
+            for l in (1, 2, 3):
+                for rec in ("ghysels", "stable"):
+                    for jac in (True, False):
+                        prec = JacobiPrec.from_operator(op) if jac else None
+                        layout = fi.SlabLayout(l=l, RB=max(l + 1, 3),
+                                               recurrence=rec)
+                        fiter = kops.fused_iteration_factory(op, prec)(layout)
+                        pfun = (lambda v: v) if prec is None else prec.apply
+                        for i in sorted({0, l - 1, l, l + 1, 2 * l + 3}):
+                            S = randn(layout.nv, op.n)
+                            idx = torch.tensor(fi.host_idx(layout, i),
+                                               dtype=torch.int32, device=dev)
+                            scal = phase_scal(l)
+                            S_p, mat, u_new = ref.fused_iter_unfused(
+                                S, idx, scal, op.apply, pfun, layout)
+                            d_p = (mat * u_new[None, :]).sum(dim=1)
+                            scale = (mat.abs()
+                                     * u_new.abs()[None, :]).sum(dim=1)
+                            S_k, d_k = fiter(S, idx, scal)
+                            torch.cuda.synchronize()
+                            row_err = max(row_err,
+                                          float((S_k - S_p).abs().max()))
+                            part_err = max(part_err, float(
+                                ((d_k - d_p).abs() / scale).max()))
+                            cases += 1
+                            del S, S_p, S_k, mat
+        torch.cuda.empty_cache()
+        return row_err, part_err, cases
 
     # ---- 1. build --------------------------------------------------------
     t0 = time.perf_counter()
@@ -130,43 +184,10 @@ def main() -> int:
         raise AssertionError("stencil kernel differs from its plain version")
     del g2, g3, g2f
 
-    fused_ops = [
-        ("stencil2d5", Stencil2D5(lap.nx, lap.ny), (1, 2, 3)),
-        ("stencil3d7", Stencil3D7(64, 50, 38, eps_z=ice.eps_z), (1, 2, 3)),
-        ("stencil3d27", Stencil3D27(64, 64, 32), (1, 2, 3)),
-        ("diagonal", DiagonalOp(laplacian_2d_spectrum(lap.nx, lap.ny)),
-         (1, 2, 3)),
-    ]
-    row_err, part_err = 0.0, 0.0
-    cases = 0
-    for name, op, depths in fused_ops:
-        for l in depths:
-            for rec in ("ghysels", "stable"):
-                for jac in (True, False):
-                    prec = JacobiPrec.from_operator(op) if jac else None
-                    layout = fi.SlabLayout(l=l, RB=max(l + 1, 3),
-                                           recurrence=rec)
-                    fiter = kops.fused_iteration_factory(op, prec)(layout)
-                    pfun = (lambda v: v) if prec is None else prec.apply
-                    for i in sorted({0, l - 1, l, l + 1, 2 * l + 3}):
-                        S = randn(layout.nv, op.n)
-                        idx = torch.tensor(fi.host_idx(layout, i),
-                                           dtype=torch.int32, device=dev)
-                        scal = randn(fi.scal_layout(l)["size"])
-                        scal[fi.scal_layout(l)["dlt_safe"]] = 1.25
-                        scal[fi.scal_layout(l)["eta_new_safe"]] = 0.75
-                        scal[fi.scal_layout(l)["eta0_safe"]] = 1.5
-                        S_p, mat, u_new = ref.fused_iter_unfused(
-                            S, idx, scal, op.apply, pfun, layout)
-                        d_p = (mat * u_new[None, :]).sum(dim=1)
-                        scale = (mat.abs() * u_new.abs()[None, :]).sum(dim=1)
-                        S_k, d_k = fiter(S, idx, scal)
-                        torch.cuda.synchronize()
-                        row_err = max(row_err, float((S_k - S_p).abs().max()))
-                        part_err = max(part_err, float(
-                            ((d_k - d_p).abs() / scale).max()))
-                        cases += 1
-                        del S, S_p, S_k, mat
+    row_err, part_err, cases = superkernel_vs_plain([
+        Stencil2D5(lap.nx, lap.ny), Stencil3D7(64, 50, 38, eps_z=ice.eps_z),
+        Stencil3D27(64, 64, 32),
+        DiagonalOp(laplacian_2d_spectrum(lap.nx, lap.ny))])
     emit({"phase": "superkernel_vs_plain", "cases": cases,
           "rows_max_abs_diff": row_err,
           "partials_max_diff_over_abs_sum": part_err,
@@ -174,7 +195,6 @@ def main() -> int:
     if row_err != 0 or not part_err <= PARTIAL_BOUND:
         raise AssertionError("superkernel differs from its plain version")
     err["fused_iter"] = row_err
-    torch.cuda.empty_cache()
 
     # ---- 3. main solve ---------------------------------------------------
     op = build_operator(lap)
@@ -288,7 +308,120 @@ def main() -> int:
             and x_rel < 1e-6):
         raise AssertionError("card and CPU paths disagree on a small input")
 
-    # ---- 7. timings ------------------------------------------------------
+    # ---- 7. the unstructured ice sheet ----------------------------------
+    ice_prob = icesheet3d.config()
+    t0 = time.perf_counter()
+    iop = build_operator(ice_prob)
+    setup_s = time.perf_counter() - t0
+    ix = randn(iop.n)
+    ell_err = {}
+    for name, dt in (("fp64", torch.float64), ("fp32", torch.float32)):
+        v = iop.vals.to(dt)
+        ell_err[name] = float((ell_spmv.ell_spmv(ix, iop.cols, v)
+                               - ell_spmv.ell_spmv_plain(ix, iop.cols, v))
+                              .abs().max())
+    emit({"phase": "ell_vs_plain", "n": iop.n, "w": iop.w, "nnz": iop.nnz,
+          "host_setup_s": setup_s, "max_abs_diff": ell_err})
+    if any(e != 0 for e in ell_err.values()):
+        raise AssertionError("ell_spmv differs from its plain version")
+    err["ell_spmv"] = max(ell_err.values())
+
+    iprec = JacobiPrec.from_operator(iop)
+    row_err, part_err, cases = superkernel_vs_plain([iop])
+    emit({"phase": "superkernel_ell_vs_plain", "cases": cases,
+          "rows_max_abs_diff": row_err,
+          "partials_max_diff_over_abs_sum": part_err,
+          "partials_bound": PARTIAL_BOUND})
+    if row_err != 0 or not part_err <= PARTIAL_BOUND:
+        raise AssertionError("ELL superkernel differs from its plain version")
+    err["fused_iter_ell"] = row_err
+
+    ib = torch.tensor(np.random.default_rng(0).standard_normal(iop.n),
+                      device=dev)
+    ice_kw = dict(l=2, tol=TOL, maxit=ice_prob.maxit,
+                  sigmas=shifts_for_operator(iop, 2, prec=iprec),
+                  fused_iteration=True, unroll=16)
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    ires = be.solve(iop, ib, prec=iprec, **ice_kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    ice_launches = dict(_build.LAUNCHES)
+    n_iter = ice_launches.get("fused_iter_ell", 0)
+    true_rel = float(torch.linalg.norm(ib - iop.apply(ires.x))
+                     / torch.linalg.norm(ib))
+    emit({"phase": "icesheet_solve", "problem": ice_prob.name, "n": iop.n,
+          "l": 2, "prec": "jacobi (stands in for block-Jacobi)",
+          "converged": bool(ires.converged), "iters": int(ires.iters),
+          "restarts": int(ires.restarts), "vector_phases": n_iter,
+          "wall_s": wall, "ms_per_iter": 1e3 * wall / max(n_iter, 1),
+          "host_syncs": ires.host_syncs,
+          "host_syncs_per_iter": ires.host_syncs / max(n_iter, 1),
+          "true_rel_residual": true_rel, "launches": ice_launches})
+    if not bool(ires.converged) or not true_rel < 10 * TOL:
+        raise AssertionError("icesheet solve did not converge")
+    if n_iter == 0:
+        raise AssertionError("icesheet solve never launched the ELL "
+                             "superkernel")
+
+    r_p = be.solve(iop, ib, prec=iprec, **dict(ice_kw, fused_iteration=False))
+    h_f, h_p = ires.res_history.cpu().numpy(), r_p.res_history.cpu().numpy()
+    m = int(min((h_f >= 0).sum(), (h_p >= 0).sum()))
+    hist_rel = float(np.max(np.abs(h_f[:m] - h_p[:m]) / np.abs(h_p[:m])))
+    emit({"phase": "icesheet_fused_vs_plain",
+          "iters": [int(ires.iters), int(r_p.iters)], "history_entries": m,
+          "history_max_rel_diff": hist_rel, "rtol": HISTORY_RTOL})
+    if int(ires.iters) != int(r_p.iters) or not hist_rel <= HISTORY_RTOL:
+        raise AssertionError("icesheet fused and plain vector phases "
+                             "disagree")
+    del ires, r_p
+
+    kop = dataclasses.replace(iop, use_kernel=True)
+    kw = dict(ice_kw, fused_iteration=False)
+    _build.reset_launches()
+    r_k = be.solve(kop, ib, prec=iprec, **kw)
+    torch.cuda.synchronize()
+    ell_launches = dict(_build.LAUNCHES)
+    r_p = be.solve(iop, ib, prec=iprec, **kw)
+    same = bool(torch.equal(r_k.res_history, r_p.res_history)
+                and torch.equal(r_k.x, r_p.x))
+    emit({"phase": "ell_kernel_solve", "iters": int(r_k.iters),
+          "converged": bool(r_k.converged), "launches": ell_launches,
+          "bitwise_equal_to_plain": same})
+    if not same or ell_launches.get("ell_spmv", 0) == 0:
+        raise AssertionError("ell_spmv solve differs from plain or never "
+                             "launched the kernel")
+    del r_k, r_p
+
+    ism = icesheet3d.smoke_config()
+    runs = {}
+    sig_small = None
+    for d in ("cpu", "cuda"):
+        sop = build_operator(ism, device=d)
+        sp = JacobiPrec.from_operator(sop)
+        if sig_small is None:
+            sig_small = shifts_for_operator(sop, 2, prec=sp).numpy()
+        sb = torch.tensor(np.random.default_rng(2).standard_normal(sop.n),
+                          device=d)
+        runs[d] = LocalBackend(device=d).solve(
+            sop, sb, prec=sp, l=2, tol=1e-8, maxit=500, sigmas=sig_small,
+            fused_iteration=True, unroll=16)
+    rc, rh = runs["cuda"], runs["cpu"]
+    x_rel = float(torch.linalg.norm(rc.x.cpu() - rh.x)
+                  / torch.linalg.norm(rh.x))
+    small = {"phase": "small_reference_icesheet", "n": sop.n,
+             "iters": [int(rc.iters), int(rh.iters)],
+             "converged": [bool(rc.converged), bool(rh.converged)],
+             "x_rel_diff": x_rel, "finite": bool(torch.isfinite(rc.x).all())}
+    emit(small)
+    if not (small["finite"] and all(small["converged"])
+            and abs(small["iters"][0] - small["iters"][1]) <= 2
+            and x_rel < 1e-6):
+        raise AssertionError("card and CPU paths disagree on the small "
+                             "ice sheet")
+
+    # ---- 8. timings ------------------------------------------------------
     timings = {}
     g2 = randn(lap.nx, lap.ny)
     w2 = torch.tensor([[0., -1., 0.], [-1., 4., -1.], [0., -1., 0.]],
@@ -324,10 +457,7 @@ def main() -> int:
     i_late = 2 * lap.l + 3
     host = fi.host_idx(layout, i_late)
     idx = torch.tensor(host, dtype=torch.int32, device=dev)
-    scal = randn(fi.scal_layout(lap.l)["size"])
-    scal[fi.scal_layout(lap.l)["dlt_safe"]] = 1.25
-    scal[fi.scal_layout(lap.l)["eta_new_safe"]] = 0.75
-    scal[fi.scal_layout(lap.l)["eta0_safe"]] = 1.5
+    scal = phase_scal(lap.l)
     S = randn(layout.nv, op.n) * 1e-3
     timings["fused_iter"] = {
         "ms": cuda_ms(lambda: fiter(S, idx, scal)),
@@ -338,11 +468,48 @@ def main() -> int:
         "jax_custom_call_hbm_bytes": fi.custom_call_hbm_bytes(layout, op.n),
     }
     del S
+
+    # The ELL kernels at the ice sheet's shape.  Library yardstick for
+    # ell_spmv: one cuSPARSE CSR product over the same nonzeros.
+    ivals = iop.vals
+    keep = ivals != 0
+    crow = torch.zeros(iop.n + 1, dtype=torch.int64, device=dev)
+    crow[1:] = torch.cumsum(keep.sum(dim=1), 0)
+    csr = torch.sparse_csr_tensor(crow, iop.cols[keep].long(), ivals[keep],
+                                  size=(iop.n, iop.n))
+    y_lib = csr @ ix
+    err["csr_vs_ell_spmv"] = float((y_lib - ell_spmv.ell_spmv(
+        ix, iop.cols, ivals)).abs().max())
+    timings["ell_spmv"] = {
+        "ms": cuda_ms(lambda: ell_spmv.ell_spmv(ix, iop.cols, ivals)),
+        "plain_ms": cuda_ms(
+            lambda: ell_spmv.ell_spmv_plain(ix, iop.cols, ivals)),
+        "library_ms": cuda_ms(lambda: csr @ ix),
+        "bytes": (iop.cols.numel() * 4 + ivals.numel() * 8
+                  + 2 * iop.n * 8),
+    }
+    del csr, y_lib
+    layout = fi.SlabLayout(l=2, RB=3)
+    fiter = kops.fused_iteration_factory(iop, iprec)(layout)
+    host = fi.host_idx(layout, 2 * layout.l + 3)
+    idx = torch.tensor(host, dtype=torch.int32, device=dev)
+    scal = phase_scal(2)
+    S = randn(layout.nv, iop.n) * 1e-3
+    timings["fused_iter_ell"] = {
+        "ms": cuda_ms(lambda: fiter(S, idx, scal)),
+        "plain_ms": cuda_ms(lambda: fiter.plain(S, idx, scal), reps=5),
+        "library_ms": None,
+        "bytes": fi.min_bytes(layout, host, iop.n, has_prec=True,
+                              has_diag=False,
+                              operand_bytes=fiter.spmv.operand_bytes),
+    }
+    del S
     for t in timings.values():
         t["bound_ms"] = 1e3 * t["bytes"] / PEAK_BYTES_PER_S
         t["bound_by"] = "bytes"
     emit({"phase": "timings", "gpu": gpu, "timings": timings,
-          "conv2d_vs_stencil2d5_max_abs_diff": err["conv2d_vs_stencil2d5"]})
+          "conv2d_vs_stencil2d5_max_abs_diff": err["conv2d_vs_stencil2d5"],
+          "csr_vs_ell_spmv_max_abs_diff": err["csr_vs_ell_spmv"]})
 
     # Where one iteration of the main solve goes: device time of the
     # superkernel versus everything else, over a short profiled solve.
@@ -396,6 +563,12 @@ def main() -> int:
         ("stencil3d7", src_dir + "stencil_spmv.cu",
          "src/repro/kernels/stencil_spmv.py:78",
          stencil_launches.get("stencil3d7", 0)),
+        ("fused_iter_ell", src_dir + "fused_iter.cuh",
+         "src/repro/kernels/fused_iter.py:229",
+         ice_launches.get("fused_iter_ell", 0)),
+        ("ell_spmv", src_dir + "ell_spmv.cu",
+         "src/repro/kernels/ell_spmv.py:37",
+         ell_launches.get("ell_spmv", 0)),
     ]:
         t = timings[name]
         kernels.append({

@@ -6,9 +6,10 @@ counterpart is easy to find.  It imports ``torch`` and numpy only.
 Entry points place their tensors on ``cuda`` unless the caller passes
 ``device="cpu"``; asking for ``cuda`` where there is none raises.
 
-On a CUDA tensor the three hand-written kernels in ``kernels/csrc``
-(the fused-iteration superkernel, ``stencil2d5`` and ``stencil3d7``)
-run; on a CPU tensor their plain PyTorch versions run instead.
+On a CUDA tensor the hand-written kernels in ``kernels/csrc`` (the
+fused-iteration superkernel with its stencil, diagonal and ELL plug-ins,
+``stencil2d5``, ``stencil3d7`` and ``ell_spmv``) run; on a CPU tensor
+their plain PyTorch versions run instead.
 """
 
 from repro_torch.device import resolve_device

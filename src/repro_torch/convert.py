@@ -4,9 +4,10 @@ The JAX objects are handed over as numpy arrays and plain fields (this
 module imports nothing of ``repro``); the tests extract them, so both
 packages solve the identical system from the identical shifts:
 
-* operators: ``kind`` plus grid sizes, ``eps_z``/``centre``, or a
-  ``DiagonalOp``'s ``d`` (:func:`operator`, and :func:`operator_fields`
-  for the way back);
+* operators: ``kind`` plus grid sizes, ``eps_z``/``centre``, a
+  ``DiagonalOp``'s ``d``, or a ``SparseOp``'s ELL ``cols``/``vals`` with
+  its ``ordered``/``use_kernel`` flags (:func:`operator`, and
+  :func:`operator_fields` for the way back);
 * ``JacobiPrec.inv_diag`` (:func:`jacobi`);
 * Chebyshev ``sigmas`` (:func:`sigmas`);
 * a vector-phase ``(S, idx, scal)`` triple (:func:`vector_phase`).
@@ -21,16 +22,18 @@ from repro_torch.device import as_tensor, resolve_device
 from repro_torch.linalg.operators import (DenseSPD, DiagonalOp, Stencil2D5,
                                           Stencil3D7, Stencil3D27)
 from repro_torch.linalg.preconditioners import JacobiPrec
+from repro_torch.linalg.sparse import SparseOp
 
 OPERATOR_KINDS = ("stencil2d5", "stencil3d7", "stencil3d27", "diagonal",
-                  "dense")
+                  "dense", "ell")
 
 
 def operator(kind: str, device=None, **fields):
     """A port operator from the fields of its JAX counterpart:
     ``stencil2d5`` (nx, ny[, use_kernel]), ``stencil3d7`` (nx, ny, nz,
     eps_z[, use_kernel]), ``stencil3d27`` (nx, ny, nz, centre),
-    ``diagonal`` (d), ``dense`` (a)."""
+    ``diagonal`` (d), ``dense`` (a), ``ell`` (cols, vals[, ordered,
+    use_kernel]: a ``SparseOp``, vals keeping their dtype)."""
     if kind == "stencil2d5":
         return Stencil2D5(int(fields["nx"]), int(fields["ny"]),
                           use_kernel=bool(fields.get("use_kernel", False)),
@@ -49,6 +52,12 @@ def operator(kind: str, device=None, **fields):
                           device=resolve_device(device))
     if kind == "dense":
         return DenseSPD(as_tensor(np.asarray(fields["a"]), device),
+                        device=resolve_device(device))
+    if kind == "ell":
+        return SparseOp(cols=np.asarray(fields["cols"]),
+                        vals=np.asarray(fields["vals"]),
+                        ordered=bool(fields.get("ordered", False)),
+                        use_kernel=bool(fields.get("use_kernel", False)),
                         device=resolve_device(device))
     raise ValueError(f"unknown operator kind {kind!r}; "
                      f"available: {', '.join(OPERATOR_KINDS)}")
@@ -69,6 +78,10 @@ def operator_fields(op) -> dict:
         return {"kind": "diagonal", "d": op.d.cpu().numpy()}
     if isinstance(op, DenseSPD):
         return {"kind": "dense", "a": op.a.cpu().numpy()}
+    if isinstance(op, SparseOp):
+        return {"kind": "ell", "cols": op.cols.cpu().numpy(),
+                "vals": op.vals.cpu().numpy(), "ordered": op.ordered,
+                "use_kernel": op.use_kernel}
     raise TypeError(f"no field form for {type(op).__name__}")
 
 

@@ -32,7 +32,9 @@ SOURCES = (
     "fused_iter_stencil3d7.cu",
     "fused_iter_stencil3d27.cu",
     "fused_iter_diagonal.cu",
+    "fused_iter_ell.cu",
     "stencil_spmv.cu",
+    "ell_spmv.cu",
 )
 HEADERS = ("fused_iter.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

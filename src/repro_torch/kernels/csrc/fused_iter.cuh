@@ -3,7 +3,7 @@
 //
 // Replaces the Pallas kernel of repro/kernels/fused_iter.py
 // (build_fused_iteration -> fiter, body `kernel`, with its SPMV plug-ins
-// resident_spmv and diagonal_spmv).  It computes, per column j of the slab:
+// resident_spmv, diagonal_spmv and ell_spmv).  It computes, per column j of the slab:
 // the SPMV of the ring-top z, the pointwise (Jacobi) preconditioner, the
 // pipeline-fill copies, the K4 basis recurrences (ghysels or stable), the
 // ring writes, the K6 x/p updates and the (2l+1) local dot-block products,
@@ -11,8 +11,8 @@
 //
 // Bound: device-memory bytes.  Every slab row the iteration touches is read
 // once and every updated row written once (17 distinct rows of N doubles in
-// a late iteration at l = 2 with Jacobi); the arithmetic is a few dozen
-// flops per column.  The design keeps one column per thread so each thread
+// a late iteration at l = 2 with Jacobi), plus an ELL operator's cols and
+// vals once; the arithmetic is a few dozen flops per column.  The design keeps one column per thread so each thread
 // has a dozen independent coalesced loads in flight, and nothing of the
 // slab is staged in shared memory.
 //
@@ -20,9 +20,13 @@
 // * In place across blocks.  Row writes are per column and a thread loads
 //   every operand row it needs at its column before it stores anything, so
 //   the slab is updated in place, as the Pallas kernel's aliased output is.
-// * The stencil SPMV reads the ring-top row at other blocks' columns, so the
-//   wrapper's first launch copies that row to its own buffer (the Pallas
-//   wrapper's `prepare(z_top)`); no block reads a row another block writes.
+// * The stencil and ELL SPMVs read the ring-top row at other blocks'
+//   columns, so the wrapper's first launch copies that row to its own
+//   buffer (the Pallas wrapper's `prepare(z_top)`); no block reads a row
+//   another block writes.
+// * The ELL plug-in gathers from that copy, one row of W slots per thread
+//   (row-major (n, W) cols/vals, so a warp's slot loads are strided), and
+//   sums the slots in ell_rowsum's left-to-right order.
 // * Store order and masks follow the plain version exactly: every mask is a
 //   select, and a masked-off row write (which in the plain version stores
 //   the row's original value back) is skipped only when no earlier write of
@@ -46,13 +50,17 @@ namespace fi {
 constexpr int BLOCK = 256;
 constexpr int LMAX = 6;
 
-enum { SPMV_2D5 = 0, SPMV_3D7 = 1, SPMV_3D27 = 2, SPMV_DIAG = 3 };
+enum { SPMV_2D5 = 0, SPMV_3D7 = 1, SPMV_3D27 = 2, SPMV_DIAG = 3,
+       SPMV_ELL = 4 };
 
 struct Spmv {
-  const double* z;  // resident copy of the ring-top row (stencils)
-  const double* d;  // diagonal (SPMV_DIAG)
+  const double* z;     // resident copy of the ring-top row (stencils, ELL)
+  const double* d;     // diagonal (SPMV_DIAG)
   int nx, ny, nz;
-  double coef;      // eps_z (3D7) or centre weight (3D27)
+  double coef;         // eps_z (3D7) or centre weight (3D27)
+  const int* cols;     // (n, w) ELL column indices (SPMV_ELL)
+  const double* vals;  // (n, w) ELL values (SPMV_ELL)
+  int w;               // ELL slots per row
 };
 
 // az[j] with the plain version's term order; grid points outside the domain
@@ -62,6 +70,13 @@ __device__ __forceinline__ double spmv_at(const Spmv& sp, long long j,
                                           double zj) {
   if constexpr (KIND == SPMV_DIAG) {
     return sp.d[j] * zj;
+  } else if constexpr (KIND == SPMV_ELL) {
+    const int* c = sp.cols + j * sp.w;
+    const double* v = sp.vals + j * sp.w;
+    const double* z = sp.z;
+    double acc = v[0] * z[c[0]];
+    for (int s = 1; s < sp.w; ++s) acc = acc + v[s] * z[c[s]];
+    return acc;
   } else if constexpr (KIND == SPMV_2D5) {
     const long long ny = sp.ny;
     const long long ix = j / ny, iy = j - ix * ny;
@@ -348,7 +363,8 @@ cudaError_t dispatch(int l, bool stable, bool prec, const Args& a) {
                       int rb, const void* idx, const void* scal, void* zbuf, \
                       const void* inv_diag, void* part, int nblocks,         \
                       void* partials, int nx, int ny, int nz, double coef,   \
-                      const void* d, void* stream) {                         \
+                      const void* d, const void* cols, const void* vals,     \
+                      int w, void* stream) {                                 \
     fi::Args a;                                                              \
     a.S = (double*)S;                                                        \
     a.n = n;                                                                 \
@@ -361,6 +377,9 @@ cudaError_t dispatch(int l, bool stable, bool prec, const Args& a) {
     a.sp.ny = ny;                                                            \
     a.sp.nz = nz;                                                            \
     a.sp.coef = coef;                                                        \
+    a.sp.cols = (const int*)cols;                                            \
+    a.sp.vals = (const double*)vals;                                         \
+    a.sp.w = w;                                                              \
     a.zbuf = (double*)zbuf;                                                  \
     a.inv_diag = (const double*)inv_diag;                                    \
     a.part = (double*)part;                                                  \

@@ -9,7 +9,9 @@ copied verbatim, so one ``(S, idx, scal)`` triple feeds both packages.
 ``build_fused_iteration`` returns ``fiter(S, idx, scal) -> (S', partials)``.
 On a CUDA slab it launches the superkernel, which updates ``S`` in place
 (``S'`` is ``S``); on a CPU slab it runs the plain version
-``ref.fused_iter_ref``.  Any other device raises.
+``ref.fused_iter_ref``.  Any other device raises.  A launch adds one to
+``_build.LAUNCHES["fused_iter_ell"]`` for the ELL plug-in and to
+``_build.LAUNCHES["fused_iter"]`` for the others.
 """
 
 from __future__ import annotations
@@ -22,7 +24,7 @@ from typing import Callable
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.ref import fused_iter_ref
+from repro_torch.kernels.ref import ell_rowsum, fused_iter_ref
 
 
 # ---------------------------------------------------------------- layout --
@@ -186,17 +188,18 @@ def check_z_top_not_written(layout: SlabLayout) -> None:
 
 # ------------------------------------------------------------ SPMV plug-ins --
 
-SPMV_KINDS = ("stencil2d5", "stencil3d7", "stencil3d27", "diagonal")
+SPMV_KINDS = ("stencil2d5", "stencil3d7", "stencil3d27", "diagonal", "ell")
 
 
 @dataclasses.dataclass(frozen=True)
 class FusedSpmv:
     """Operator plug-in for the superkernel.
 
-    ``kind`` selects the kernel's SPMV template; ``dims``/``coef``/``d``
-    are its parameters (grid sizes, eps_z or the 27-point centre weight,
-    the diagonal); ``expr`` is the operator's plain apply, which the CPU
-    path evaluates and which the kernel mirrors term by term.
+    ``kind`` selects the kernel's SPMV template; ``dims``/``coef``/``d``/
+    ``cols``/``vals`` are its parameters (grid sizes, eps_z or the
+    27-point centre weight, the diagonal, the ELL arrays); ``expr`` is the
+    operator's plain apply, which the CPU path evaluates and which the
+    kernel mirrors term by term.
     """
 
     kind: str
@@ -205,6 +208,15 @@ class FusedSpmv:
     dims: tuple[int, int, int] = (0, 0, 0)
     coef: float = 0.0
     d: torch.Tensor | None = None
+    cols: torch.Tensor | None = None
+    vals: torch.Tensor | None = None
+
+    @property
+    def operand_bytes(self) -> int:
+        """Bytes of an ELL operator's cols and vals, which the SPMV reads
+        beside the slab (``min_bytes`` counts a diagonal by ``has_diag``)."""
+        return sum(t.numel() * t.element_size()
+                   for t in (self.cols, self.vals) if t is not None)
 
 
 def resident_spmv(kind: str, expr: Callable[[torch.Tensor], torch.Tensor],
@@ -225,6 +237,17 @@ def diagonal_spmv(d: torch.Tensor) -> FusedSpmv:
                      n=int(d.shape[0]), d=d)
 
 
+def ell_spmv(cols: torch.Tensor, vals: torch.Tensor) -> FusedSpmv:
+    """Padded-row ELL SPMV (``SparseOp``): each row gathers its W slots
+    from the ring-top copy and sums them in ``ref.ell_rowsum``'s order.
+    ``vals`` is held in fp64, the slab's type (exact for fp32 values, and
+    the cast the plain apply makes)."""
+    vals64 = vals.to(torch.float64)
+    return FusedSpmv(kind="ell",
+                     expr=lambda z: ell_rowsum(vals64.to(z.dtype), z[cols]),
+                     n=int(cols.shape[0]), cols=cols, vals=vals64)
+
+
 # ---------------------------------------------------------------- kernel --
 
 _ARGTYPES = [ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
@@ -232,7 +255,7 @@ _ARGTYPES = [ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
              ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
              ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
              ctypes.c_int, ctypes.c_int, ctypes.c_double, ctypes.c_void_p,
-             ctypes.c_void_p]
+             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
 BLOCK = 256          # threads per block, fixed in csrc/fused_iter.cuh
 LMAX = 6             # deepest pipeline the kernel is instantiated for
 
@@ -269,6 +292,8 @@ def build_fused_iteration(
                          "(want 'ghysels' or 'stable')")
     check_z_top_not_written(layout)
     n = spmv.n
+    # The ELL instantiation counts its launches apart from the others.
+    count_key = "fused_iter_ell" if spmv.kind == "ell" else "fused_iter"
     prec = (lambda v: v) if inv_diag is None else \
         (lambda v: inv_diag.to(v.dtype) * v)
 
@@ -293,6 +318,11 @@ def build_fused_iteration(
         d = spmv.d
         if d is not None:
             _check(d, "d", torch.float64, (n,), dev)
+        cols, vals, w = spmv.cols, spmv.vals, 0
+        if spmv.kind == "ell":
+            w = int(cols.shape[1])
+            _check(cols, "cols", torch.int32, (n, w), dev)
+            _check(vals, "vals", torch.float64, (n, w), dev)
         nb = (n + BLOCK - 1) // BLOCK
         zbuf = None if spmv.kind == "diagonal" else \
             torch.empty(n, dtype=S.dtype, device=dev)
@@ -309,8 +339,10 @@ def build_fused_iteration(
                     None if zbuf is None else zbuf.data_ptr(),
                     None if inv is None else inv.data_ptr(),
                     part.data_ptr(), nb, partials.data_ptr(), nx, ny, nz,
-                    spmv.coef, None if d is None else d.data_ptr(), stream)
-        _build.LAUNCHES["fused_iter"] += 1
+                    spmv.coef, None if d is None else d.data_ptr(),
+                    None if cols is None else cols.data_ptr(),
+                    None if vals is None else vals.data_ptr(), w, stream)
+        _build.LAUNCHES[count_key] += 1
         _build.check(rc, name)
         return S, partials
 
@@ -322,6 +354,7 @@ def build_fused_iteration(
         raise ValueError(f"no fused iteration for device {S.device}")
 
     fiter.plain = plain
+    fiter.spmv = spmv
     return fiter
 
 
@@ -339,12 +372,13 @@ def custom_call_hbm_bytes(layout: SlabLayout, n: int, dsize: int = 8,
 
 
 def min_bytes(layout: SlabLayout, idx, n: int, has_prec: bool,
-              has_diag: bool, dsize: int = 8) -> int:
+              has_diag: bool, dsize: int = 8, operand_bytes: int = 0) -> int:
     """Least device-memory bytes one vector phase must move for the index
     vector ``idx``: each distinct slab row it reads once, each distinct row
-    it changes once, the preconditioner and diagonal vectors once, plus the
-    idx/scal inputs and the partials output.  The bound of the superkernel
-    on the card."""
+    it changes once, the preconditioner and diagonal vectors once, the
+    SPMV's other operator data (``operand_bytes``: an ELL operator's cols
+    and vals, ``FusedSpmv.operand_bytes``) once, plus the idx/scal inputs
+    and the partials output.  The bound of the superkernel on the card."""
     l = layout.l
     IX = idx_layout(l)
     late = idx[IX["f_late"]] != 0
@@ -371,5 +405,5 @@ def min_bytes(layout: SlabLayout, idx, n: int, has_prec: bool,
         reads.add(0)
         writes.add(layout.p_row)
     vectors = len(reads) + len(writes) + int(has_prec) + int(has_diag)
-    return (vectors * n * dsize + IX["size"] * 4
+    return (vectors * n * dsize + operand_bytes + IX["size"] * 4
             + scal_layout(l)["size"] * dsize + (2 * l + 1) * dsize)

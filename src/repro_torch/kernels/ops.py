@@ -1,11 +1,12 @@
 """Public wrappers around the port's kernels (counterpart of
 ``repro/kernels/ops.py:31-178``): the fused-iteration factory with its
-operator plug-ins, and the standalone stencil applies."""
+operator plug-ins, and the standalone stencil and ELL applies."""
 
 from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import ell_spmv as _el
 from repro_torch.kernels import fused_iter as _fi
 from repro_torch.kernels import stencil_spmv as _ss
 
@@ -14,15 +15,18 @@ def _local_fused_spmv(op):
     """Single-device :class:`~repro_torch.kernels.fused_iter.FusedSpmv`
     for the operator, mirroring its plain ``apply`` term by term; None when
     unsupported.  ``use_kernel`` operators are refused as in the JAX
-    package: their apply goes through the standalone stencil kernel, and
-    the superkernel mirrors the plain expressions instead."""
+    package: their apply goes through a standalone kernel, and the
+    superkernel mirrors the plain expressions instead."""
     from repro_torch.linalg.operators import (DiagonalOp, Stencil2D5,
                                               Stencil3D7, Stencil3D27)
+    from repro_torch.linalg.sparse import SparseOp
 
     if isinstance(op, DiagonalOp):
         return _fi.diagonal_spmv(op.d)
     if getattr(op, "use_kernel", False):
         return None
+    if isinstance(op, SparseOp):
+        return _fi.ell_spmv(op.cols, op.vals)
     if isinstance(op, Stencil2D5):
         return _fi.resident_spmv("stencil2d5", op.apply, (op.nx, op.ny))
     if isinstance(op, Stencil3D7):
@@ -31,7 +35,6 @@ def _local_fused_spmv(op):
     if isinstance(op, Stencil3D27):
         return _fi.resident_spmv("stencil3d27", op.apply,
                                  (op.nx, op.ny, op.nz), op.centre)
-    # Sparse (ELL) operators join with ROADMAP.md queue 1, item 4.
     return None
 
 
@@ -67,3 +70,11 @@ def stencil2d5_apply(g: torch.Tensor) -> torch.Tensor:
 
 def stencil3d7_apply(g: torch.Tensor, eps_z: float = 1.0) -> torch.Tensor:
     return _ss.stencil3d7(g.contiguous(), eps_z)
+
+
+def ell_spmv_apply(x: torch.Tensor, cols: torch.Tensor,
+                   vals: torch.Tensor) -> torch.Tensor:
+    """Padded-row ELL SpMV (DESIGN.md §12).  ``x`` may be longer than the
+    row count.  The CUDA kernel bounds-checks its rows, so no padding to a
+    block multiple is needed."""
+    return _el.ell_spmv(x, cols.contiguous(), vals.contiguous())

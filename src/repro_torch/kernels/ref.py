@@ -44,6 +44,27 @@ def stencil3d27_ref(g: torch.Tensor, centre: float) -> torch.Tensor:
     return out
 
 
+def ell_rowsum(vals: torch.Tensor, gathered: torch.Tensor) -> torch.Tensor:
+    """sum_s vals[..., s] * gathered[..., s] with an explicit left-to-right
+    add chain over the (small) slot axis, as ``repro/linalg/sparse.py``'s
+    ``ell_rowsum``: a fixed order that the CUDA ELL kernel and the
+    superkernel's ELL plug-in follow term by term."""
+    acc = vals[..., 0] * gathered[..., 0]
+    for s in range(1, vals.shape[-1]):
+        acc = acc + vals[..., s] * gathered[..., s]
+    return acc
+
+
+def ell_spmv_ref(x: torch.Tensor, cols: torch.Tensor,
+                 vals: torch.Tensor) -> torch.Tensor:
+    """Padded-row ELL SpMV: y[r] = sum_s vals[r,s] * x[cols[r,s]], in
+    ``vals``' dtype.  Padded slots carry vals 0.  ``x`` may be longer than
+    the row count.  The JAX oracle sums the slots with ``.sum(axis=1)``;
+    this version takes the :func:`ell_rowsum` chain of ``SparseOp.apply``
+    (the two differ by rounding only)."""
+    return ell_rowsum(vals, x[cols].to(vals.dtype))
+
+
 def _sel(flag, a, b):
     """``jnp.where`` for a host or device flag: a select, never a multiply,
     so a NaN in the discarded value stays discarded."""

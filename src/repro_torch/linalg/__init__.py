@@ -4,9 +4,16 @@ from repro_torch.linalg.operators import (DenseSPD, DiagonalOp,
                                           laplacian_2d_spectrum)
 from repro_torch.linalg.preconditioners import (BlockJacobi, IdentityPrec,
                                                 JacobiPrec, Preconditioner)
+from repro_torch.linalg.sparse import (SparseOp, bandwidth, ell_rowsum,
+                                       permute_spd, random_fem_icesheet,
+                                       random_fem_mesh, rcm_permutation,
+                                       rcm_reorder, sparse_from_coo,
+                                       sparse_from_dense)
 
 __all__ = [
     "LinearOperator", "DiagonalOp", "Stencil2D5", "Stencil3D7",
     "Stencil3D27", "DenseSPD", "laplacian_2d_spectrum", "Preconditioner",
-    "IdentityPrec", "JacobiPrec", "BlockJacobi",
+    "IdentityPrec", "JacobiPrec", "BlockJacobi", "SparseOp", "ell_rowsum",
+    "sparse_from_coo", "sparse_from_dense", "rcm_permutation", "bandwidth",
+    "permute_spd", "rcm_reorder", "random_fem_mesh", "random_fem_icesheet",
 ]

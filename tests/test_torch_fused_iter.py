@@ -19,6 +19,8 @@ import torch
 jax.config.update("jax_enable_x64", True)
 torch.set_num_threads(1)
 
+from repro.configs import icesheet3d as jice  # noqa: E402
+from repro.configs.problems import build_operator as jbuild  # noqa: E402
 from repro.kernels import ref as jref  # noqa: E402
 from repro.kernels import fused_iter as jfi  # noqa: E402
 from repro.kernels.ops import fused_iteration_factory as jfactory  # noqa: E402
@@ -42,6 +44,11 @@ def cuda_device():
 
 
 def _pair(name):
+    if name == "ell":
+        j = jbuild(jice.smoke_config())
+        return j, convert.operator("ell", device="cpu",
+                                   cols=np.asarray(j.cols),
+                                   vals=np.asarray(j.vals), ordered=True)
     if name == "stencil2d5":
         j = jops.Stencil2D5(16, 12)
     elif name == "stencil3d7":
@@ -78,7 +85,7 @@ def _compare(S_j, d_j, S_t, d_t, scale_rows, mat, u):
 
 
 @pytest.mark.parametrize("name", ["stencil2d5", "stencil3d7", "stencil3d27",
-                                  "diagonal"])
+                                  "diagonal", "ell"])
 @pytest.mark.parametrize("l", [1, 2, 3])
 def test_vector_phase_matches_jax_ref(name, l):
     jop, top = _pair(name)
@@ -112,6 +119,8 @@ def test_vector_phase_matches_jax_ref(name, l):
     ("stencil2d5", 2, "stable", True),
     ("stencil3d7", 3, "ghysels", True),
     ("diagonal", 2, "ghysels", False),
+    ("ell", 2, "ghysels", True),
+    ("ell", 3, "stable", False),
 ])
 def test_port_matches_jax_superkernel_interpret(name, l, rec, jac):
     """The JAX Pallas superkernel, run in interpret mode as the JAX

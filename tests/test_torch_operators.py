@@ -24,7 +24,8 @@ from repro.core import chebyshev as jcheb  # noqa: E402
 from repro.linalg import operators as jops  # noqa: E402
 from repro.linalg import preconditioners as jprec  # noqa: E402
 from repro_torch import convert  # noqa: E402
-from repro_torch.configs import icesheet3d_stencil, laplace2d  # noqa: E402
+from repro_torch.configs import (icesheet3d, icesheet3d_stencil,  # noqa: E402
+                                 laplace2d)
 from repro_torch.configs.laplace2d import CGProblem  # noqa: E402
 from repro_torch.configs.problems import build_operator  # noqa: E402
 from repro_torch.core import chebyshev as tcheb  # noqa: E402
@@ -32,6 +33,7 @@ from repro_torch.device import resolve_device  # noqa: E402
 from repro_torch.kernels import stencil_spmv  # noqa: E402
 from repro_torch.linalg import operators as tops  # noqa: E402
 from repro_torch.linalg import preconditioners as tprec  # noqa: E402
+from repro_torch.linalg.sparse import SparseOp  # noqa: E402
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 RTOL = 1e-13
@@ -230,8 +232,12 @@ def test_configs_build_operators():
     d = build_operator(CGProblem("toy", "diagonal", 8, 6), "cpu")
     assert isinstance(d, tops.DiagonalOp) and d.n == 48
     assert laplace2d.config().nx * laplace2d.config().ny == 2048 ** 2
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_operator(CGProblem("mesh", "unstructured", 4, 4), "cpu")
+    ice = build_operator(icesheet3d.smoke_config(), "cpu")
+    assert isinstance(ice, SparseOp) and ice.n == 240 and ice.ordered
+    mesh = build_operator(CGProblem("mesh", "unstructured", 4, 4), "cpu")
+    assert isinstance(mesh, SparseOp) and mesh.n == 16 and mesh.ordered
+    assert icesheet3d.config().nx * icesheet3d.config().ny * \
+        icesheet3d.config().nz == 500_000
     with pytest.raises(ValueError):
         build_operator(CGProblem("x", "nope", 4, 4), "cpu")
 

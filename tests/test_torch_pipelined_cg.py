@@ -20,12 +20,15 @@ import torch
 jax.config.update("jax_enable_x64", True)
 torch.set_num_threads(1)
 
+from repro.configs import icesheet3d as jice  # noqa: E402
+from repro.configs.problems import build_operator as jbuild  # noqa: E402
 from repro.core import pipelined_cg as jpc  # noqa: E402
 from repro.core.chebyshev import shifts_for_operator as jshifts  # noqa: E402
 from repro.core.types import SolverOps as JOps  # noqa: E402
 from repro.linalg import operators as jops  # noqa: E402
 from repro.linalg.preconditioners import JacobiPrec as JJacobi  # noqa: E402
 from repro_torch import convert  # noqa: E402
+from repro_torch.configs import icesheet3d as tice  # noqa: E402
 from repro_torch.configs import laplace2d  # noqa: E402
 from repro_torch.configs.problems import build_operator  # noqa: E402
 from repro_torch.core import pipelined_cg as tpc  # noqa: E402
@@ -36,6 +39,9 @@ from repro_torch.parallel.backends import LocalBackend, get_backend  # noqa: E40
 
 
 def _ops(name):
+    if name == "ell":     # icesheet3d.smoke_config(), 240 FEM nodes
+        return (jbuild(jice.smoke_config()),
+                build_operator(tice.smoke_config(), "cpu"))
     if name == "stencil2d5":
         j = jops.Stencil2D5(16, 12)
         return j, convert.operator(name, nx=16, ny=12, device="cpu")
@@ -85,6 +91,8 @@ def test_solve_matches_jax(l, rec, jac):
     ("diagonal", 2, "ghysels", False, 0),
     ("stencil2d5", 2, "ghysels", True, 20),
     ("stencil2d5", 3, "stable", False, 15),
+    ("ell", 1, "ghysels", True, 0),
+    ("ell", 2, "ghysels", True, 0),
 ])
 def test_solve_matches_jax_more_operators(name, l, rec, jac, replace_every):
     rj, rt = _both(name, l, rec, jac, replace_every=replace_every)
@@ -112,6 +120,7 @@ def _assert_bitwise(ra, rb):
 @pytest.mark.parametrize("name,l,jac,replace_every", [
     ("stencil2d5", 2, True, 0), ("stencil3d27", 1, False, 0),
     ("diagonal", 3, False, 0), ("stencil2d5", 3, True, 20),
+    ("ell", 2, True, 0),
 ])
 def test_fused_equals_unfused_bitwise(name, l, jac, replace_every):
     op = (Stencil3D27(6, 6, 4, device="cpu") if name == "stencil3d27"
