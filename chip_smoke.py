@@ -25,7 +25,18 @@ Phases, each printed as one JSON line; every phase raises on failure:
    ELL kernel against the plain operator, and the smoke-size ice sheet
    on the card against the port's CPU path;
 8. timings per kernel (CUDA events), their bounds and yardsticks, and a
-   profiler split of one solve iteration.
+   profiler split of one solve iteration;
+9. the kernel entry points of ``repro_torch.kernels.ops``: ``fused_dots``
+   and ``fused_dots_mrhs`` at the ``laplace2d`` slab's width (K = 5,
+   N = 2048^2, S in {1, 8}, fp64 and fp32) within an fp32 accumulation
+   bound of their plain version; ``fused_axpy3`` (N = 2048^2, fp32)
+   bitwise equal to its plain version; ``decode_attention`` and
+   ``decode_attention_stats`` at Qwen3-1.7B's attention (H = 16, Hkv = 8,
+   D = 128, fp32) and the two decode shapes (``decode_32k``: B = 16,
+   S = 32 768, kv_len 32 768 and 30 001; ``long_500k``: B = 1,
+   S = 524 288) within 2e-4 of their plain version, and the 32k cache split
+   into 8 shards, merged by ``merge_decode_shards``, against the
+   whole-cache decode; then the timings of the three kernels.
 
 It then prints the card's name and power limit, a ``kernels`` line, and
 as the last line ``{"ok": true, "device": {...}}``.  Without a card, or
@@ -43,9 +54,17 @@ import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 PEAK_BYTES_PER_S = 3.35e12      # H100 SXM HBM3, NVIDIA data sheet
+PEAK_FP32_FLOPS = 67e12         # H100 SXM fp32 outside the tensor cores
 TOL = 1e-6
 PARTIAL_BOUND = 1e-13           # |partial - plain| <= bound * sum_j |m_kj u_j|
 HISTORY_RTOL = 1e-8             # fused vs plain residual histories
+# fused_dots vs its plain version: both cast to fp32 and accumulate in fp32
+# in other orders (the kernel in per-thread chains and fixed trees, cuBLAS
+# in its own), so |kernel - plain| <= DOTS_BOUND * sum_j |m_kj v_js|: about
+# 80 fp32 ulps of the sum of magnitudes, above either order's error on
+# these inputs and far below any error in the logic.
+DOTS_BOUND = 1e-5
+ATT_TOL = 2e-4                  # decode attention, the JAX tests' bound
 
 
 def emit(obj) -> None:
@@ -72,6 +91,207 @@ def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / reps
+
+
+def bound_fields(nbytes: float, flops: float) -> dict:
+    """The least time for the work: bytes over the memory rate or fp32
+    operations over the fp32 rate, whichever is larger."""
+    t_bytes = 1e3 * nbytes / PEAK_BYTES_PER_S
+    t_ops = 1e3 * flops / PEAK_FP32_FLOPS
+    return {"bytes": nbytes, "flops": flops, "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+# Qwen3-1.7B's attention (src/repro/configs/qwen3_1p7b.py: 16 heads, 8 KV
+# heads, head_dim 128) in fp32, its compute type, at the two decode cells
+# of src/repro/launch/cells.py: decode_32k (global batch 128, one card's
+# share 16) and long_500k (batch 1).
+DECODE_HEADS, DECODE_KV_HEADS, DECODE_HEAD_DIM = 16, 8, 128
+DECODE_SHAPES = (("decode_32k", 16, 32768, (32768, 30001)),
+                 ("long_500k", 1, 524288, (524288,)))
+SPLIT_KV_SHARDS = 8
+
+
+def entry_points_phase(dev, gen, n: int, k: int) -> tuple[dict, dict, dict]:
+    """Phase 9: the kernel entry points of ``repro_torch.kernels.ops`` on the
+    card, each held against its plain version, then timed.  ``n`` and ``k``
+    are the slab width and dot-block height of the main problem.  Returns
+    (launches on the path, max abs errors, timings)."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import fused_axpy as fa
+    from repro_torch.kernels import fused_dots as fd
+    from repro_torch.kernels import ops as kops
+    from repro_torch.models.attention import merge_decode_shards
+
+    def randn(*shape, dtype=torch.float64):
+        return torch.randn(*shape, generator=gen, dtype=dtype, device=dev)
+
+    def dots_err(got, mat, vecs):
+        plain = fd.fused_dots_plain(mat, vecs).double()
+        scale = mat.abs().double() @ vecs.abs().double()
+        diff = (got.double() - plain).abs()
+        return float(diff.max()), float((diff / scale).max())
+
+    def att_err(got, want):
+        diff = (got - want).abs()
+        return (float(diff.max()),
+                bool((diff <= ATT_TOL + ATT_TOL * want.abs()).all()))
+
+    h, hkv, d = DECODE_HEADS, DECODE_KV_HEADS, DECODE_HEAD_DIM
+    err = {"fused_dots": 0.0, "fused_axpy3": 0.0, "decode_attention": 0.0}
+    torch.cuda.synchronize()
+    _build.reset_launches()
+
+    # -- the path: every entry point at its shapes, checked as it goes ----
+    dots = {}
+    for dt in (torch.float64, torch.float32):
+        mat = randn(k, n, dtype=dt)
+        vec = randn(n, dtype=dt)
+        vecs = randn(n, 8, dtype=dt)
+        name = str(dt).replace("torch.", "")
+        for label, got, v2 in (
+                ("fused_dots", kops.fused_dots(mat, vec)[:, None], vec[:, None]),
+                ("mrhs_s1", kops.fused_dots_mrhs(mat, vec[:, None]),
+                 vec[:, None]),
+                ("mrhs_s8", kops.fused_dots_mrhs(mat, vecs), vecs)):
+            abs_err, rel = dots_err(got, mat, v2)
+            dots[f"{label}_{name}"] = {"max_abs_diff": abs_err,
+                                       "max_diff_over_abs_sum": rel}
+            err["fused_dots"] = max(err["fused_dots"], abs_err)
+            if not rel <= DOTS_BOUND:
+                raise AssertionError(f"fused_dots {label} {name} exceeds "
+                                     "its accumulation bound")
+        del mat, vec, vecs
+    emit({"phase": "fused_dots_vs_plain", "k": k, "n": n, "cases": dots,
+          "bound": DOTS_BOUND})
+
+    x, y, z = (randn(n, dtype=torch.float32) for _ in range(3))
+    axpy = {}
+    for coeffs in ((0.5, -1.25, 2.0), (0.0, 0.0, 1.0), (1e3, -1e-3, 0.1)):
+        got = kops.fused_axpy3(x, y, z, *coeffs)
+        plain = fa.fused_axpy3_plain(x, y, z, *coeffs)
+        axpy[str(coeffs)] = {"bitwise_equal": bool(torch.equal(got, plain)),
+                             "max_abs_diff": float((got - plain).abs().max())}
+        if not axpy[str(coeffs)]["bitwise_equal"]:
+            raise AssertionError(f"fused_axpy3 {coeffs} differs from its "
+                                 "plain version")
+    emit({"phase": "fused_axpy3_vs_plain", "n": n, "cases": axpy})
+    del x, y, z
+
+    for shape, b, s, kv_lens in DECODE_SHAPES:
+        q = randn(b, h, d, dtype=torch.float32)
+        kc = randn(b, s, hkv, d, dtype=torch.float32)
+        vc = randn(b, s, hkv, d, dtype=torch.float32)
+        qg = q.reshape(b, hkv, h // hkv, d)
+        for kv_len in kv_lens:
+            out = kops.decode_attention(q, kc, vc, kv_len)
+            o, m, l = kops.decode_attention_stats(q, kc, vc, kv_len)
+            op, mp, lp = da.decode_attention_stats_plain(qg, kc, vc, kv_len)
+            want = op / lp
+            e_stats, ok_stats = att_err(o / l, want)
+            e_out, ok_out = att_err(out, want.reshape(b, h, d))
+            rec = {"phase": "decode_attention_vs_plain", "shape": shape,
+                   "b": b, "s": s, "kv_len": kv_len, "heads": h,
+                   "kv_heads": hkv, "head_dim": d,
+                   "stats_max_abs_diff": e_stats, "out_max_abs_diff": e_out,
+                   "m_max_abs_diff": float((m - mp).abs().max()),
+                   "finite": bool(torch.isfinite(out).all()), "tol": ATT_TOL}
+            err["decode_attention"] = max(err["decode_attention"], e_stats,
+                                          e_out)
+            if shape == "decode_32k":
+                w = s // SPLIT_KV_SHARDS
+                stats = []
+                for i in range(SPLIT_KV_SHARDS):
+                    stats.append(kops.decode_attention_stats(
+                        q, kc[:, i * w:(i + 1) * w].contiguous(),
+                        vc[:, i * w:(i + 1) * w].contiguous(),
+                        min(max(kv_len - i * w, 0), w)))
+                merged = merge_decode_shards(
+                    *(torch.stack([st[j] for st in stats]) for j in range(3)))
+                e_split, ok_split = att_err(merged.reshape(b, h, d), out)
+                rec.update(split_kv_shards=SPLIT_KV_SHARDS,
+                           split_kv_max_abs_diff=e_split)
+                if not ok_split:
+                    raise AssertionError("split-KV merge differs from the "
+                                         "whole-cache decode")
+                del stats, merged
+            emit(rec)
+            if not (ok_stats and ok_out and rec["finite"]):
+                raise AssertionError(f"decode_attention {shape} kv_len "
+                                     f"{kv_len} differs from its plain "
+                                     "version")
+            del out, o, m, l, op, mp, lp, want
+        del q, kc, vc, qg
+        torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    launches = dict(_build.LAUNCHES)
+
+    # -- timings (CUDA events) --------------------------------------------
+    timings = {}
+    mat = randn(k, n)
+    vec = randn(n)
+    m32, v32 = mat.float(), vec.float()
+    timings["fused_dots"] = dict(
+        ms=cuda_ms(lambda: fd.fused_dots(mat, vec)),
+        plain_ms=cuda_ms(lambda: fd.fused_dots_plain(mat, vec)),
+        library_ms=cuda_ms(lambda: torch.matmul(m32, v32)),
+        **bound_fields((k * n + n) * 8 + k * 8, 2 * k * n))
+    timings["fused_dots_fp32"] = dict(
+        ms=cuda_ms(lambda: fd.fused_dots(m32, v32)),
+        plain_ms=cuda_ms(lambda: fd.fused_dots_plain(m32, v32)),
+        library_ms=cuda_ms(lambda: torch.matmul(m32, v32)),
+        **bound_fields((k * n + n) * 4 + k * 4, 2 * k * n))
+    vecs = randn(n, 8)
+    V32 = vecs.float()
+    timings["fused_dots_mrhs_s8"] = dict(
+        ms=cuda_ms(lambda: fd.fused_dots_mrhs(mat, vecs)),
+        plain_ms=cuda_ms(lambda: fd.fused_dots_plain(mat, vecs)),
+        library_ms=cuda_ms(lambda: torch.matmul(m32, V32)),
+        **bound_fields((k * n + 8 * n) * 8 + 8 * k * 8, 2 * k * n * 8))
+    del mat, vec, vecs, m32, v32, V32
+    x, y, z = (randn(n, dtype=torch.float32) for _ in range(3))
+    timings["fused_axpy3"] = dict(
+        ms=cuda_ms(lambda: fa.fused_axpy3(x, y, z, 0.5, -1.25, 2.0)),
+        plain_ms=cuda_ms(lambda: fa.fused_axpy3_plain(x, y, z, 0.5, -1.25,
+                                                      2.0)),
+        library_ms=None, **bound_fields(4 * n * 4, 4 * n))
+    del x, y, z
+    for shape, b, s, kv_lens in DECODE_SHAPES:
+        q = randn(b, h, d, dtype=torch.float32)
+        kc = randn(b, s, hkv, d, dtype=torch.float32)
+        vc = randn(b, s, hkv, d, dtype=torch.float32)
+        qg = q.reshape(b, hkv, h // hkv, d)
+        # The library yardstick takes (B, H, S, D): the layout change is made
+        # here, outside the timed window.
+        kt, vt = kc.transpose(1, 2).contiguous(), vc.transpose(1, 2).contiguous()
+        q4 = q[:, :, None, :]
+        sdpa = F.scaled_dot_product_attention(q4, kt, vt, enable_gqa=True)
+        err[f"sdpa_vs_decode_attention_{shape}"] = float(
+            (sdpa[:, :, 0] - kops.decode_attention(q, kc, vc, s)).abs().max())
+        del sdpa
+        for kv_len in kv_lens:
+            key = "decode_attention" if (shape, kv_len) == ("decode_32k",
+                                                            32768) else \
+                f"decode_attention_{shape}_kv{kv_len}"
+            reps = 10 if s > 100000 else 20
+            timings[key] = dict(
+                ms=cuda_ms(lambda: da.decode_attention_stats(qg, kc, vc,
+                                                            kv_len),
+                           reps=reps),
+                plain_ms=cuda_ms(lambda: da.decode_attention_stats_plain(
+                    qg, kc, vc, kv_len), reps=reps),
+                library_ms=(cuda_ms(lambda: F.scaled_dot_product_attention(
+                    q4, kt, vt, enable_gqa=True), reps=reps)
+                    if kv_len == s else None),
+                **bound_fields(2 * b * kv_len * hkv * d * 4 + 2 * b * h * d * 4,
+                               4 * b * h * kv_len * d))
+        del q, kc, vc, qg, kt, vt, q4
+        torch.cuda.empty_cache()
+    return launches, err, timings
 
 
 def main() -> int:
@@ -550,6 +770,18 @@ def main() -> int:
                                 if prof_wall else None),
           "gpu": gpu})
 
+    # ---- 9. kernel entry points -----------------------------------------
+    t0 = time.perf_counter()
+    ep_launches, ep_err, ep_timings = entry_points_phase(
+        dev, gen, op.n, 2 * lap.l + 1)
+    err.update(ep_err)
+    timings.update(ep_timings)
+    emit({"phase": "timings_entry_points", "gpu": gpu,
+          "timings": ep_timings, "launches": ep_launches,
+          "sdpa_vs_decode_attention_max_abs_diff": {
+              k: v for k, v in ep_err.items() if k.startswith("sdpa")},
+          "seconds": time.perf_counter() - t0})
+
     # ---- contract lines --------------------------------------------------
     src_dir = "src/repro_torch/kernels/csrc/"
     kernels = []
@@ -569,6 +801,15 @@ def main() -> int:
         ("ell_spmv", src_dir + "ell_spmv.cu",
          "src/repro/kernels/ell_spmv.py:37",
          ell_launches.get("ell_spmv", 0)),
+        ("fused_dots", src_dir + "fused_dots.cu",
+         "src/repro/kernels/fused_dots.py:38",
+         ep_launches.get("fused_dots", 0)),
+        ("fused_axpy3", src_dir + "fused_axpy.cu",
+         "src/repro/kernels/fused_axpy.py:30",
+         ep_launches.get("fused_axpy3", 0)),
+        ("decode_attention", src_dir + "decode_attention.cu",
+         "src/repro/kernels/decode_attention.py:65",
+         ep_launches.get("decode_attention", 0)),
     ]:
         t = timings[name]
         kernels.append({

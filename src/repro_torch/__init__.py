@@ -8,7 +8,8 @@ Entry points place their tensors on ``cuda`` unless the caller passes
 
 On a CUDA tensor the hand-written kernels in ``kernels/csrc`` (the
 fused-iteration superkernel with its stencil, diagonal and ELL plug-ins,
-``stencil2d5``, ``stencil3d7`` and ``ell_spmv``) run; on a CPU tensor
+``stencil2d5``, ``stencil3d7``, ``ell_spmv``, ``fused_dots``,
+``fused_axpy3`` and split-KV ``decode_attention``) run; on a CPU tensor
 their plain PyTorch versions run instead.
 """
 

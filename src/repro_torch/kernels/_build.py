@@ -35,6 +35,9 @@ SOURCES = (
     "fused_iter_ell.cu",
     "stencil_spmv.cu",
     "ell_spmv.cu",
+    "fused_dots.cu",
+    "fused_axpy.cu",
+    "decode_attention.cu",
 )
 HEADERS = ("fused_iter.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

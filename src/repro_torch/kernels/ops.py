@@ -1,12 +1,20 @@
 """Public wrappers around the port's kernels (counterpart of
-``repro/kernels/ops.py:31-178``): the fused-iteration factory with its
-operator plug-ins, and the standalone stencil and ELL applies."""
+``repro/kernels/ops.py``): the fused-iteration factory with its operator
+plug-ins, the standalone stencil and ELL applies, the fused dot block and
+three-term recurrence, and single-token decode attention.
+
+The signatures and layouts are the JAX package's, without ``interpret``.
+The CUDA kernels take any length, so nothing is padded to a block
+multiple here."""
 
 from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import decode_attention as _da
 from repro_torch.kernels import ell_spmv as _el
+from repro_torch.kernels import fused_axpy as _fa
+from repro_torch.kernels import fused_dots as _fd
 from repro_torch.kernels import fused_iter as _fi
 from repro_torch.kernels import stencil_spmv as _ss
 
@@ -78,3 +86,52 @@ def ell_spmv_apply(x: torch.Tensor, cols: torch.Tensor,
     row count.  The CUDA kernel bounds-checks its rows, so no padding to a
     block multiple is needed."""
     return _el.ell_spmv(x, cols.contiguous(), vals.contiguous())
+
+
+def fused_dots(mat: torch.Tensor, vec: torch.Tensor) -> torch.Tensor:
+    """(K, N) x (N,) -> (K,) in ``mat``'s dtype, accumulated in fp32."""
+    return _fd.fused_dots(mat.contiguous(), vec.contiguous())
+
+
+def fused_dots_mrhs(mat: torch.Tensor, vecs: torch.Tensor) -> torch.Tensor:
+    """(K, N) x (N, S) -> (K, S): the slab dot block, ``mat`` streamed once
+    for all S right-hand sides (DESIGN.md §11)."""
+    return _fd.fused_dots_mrhs(mat.contiguous(), vecs.contiguous())
+
+
+def fused_axpy3(zk1, zm1, zm2, c1, c2, scale) -> torch.Tensor:
+    """(zk1 + c1*zm1 + c2*zm2) * scale in one pass, in fp32."""
+    return _fa.fused_axpy3(zk1.contiguous(), zm1.contiguous(),
+                           zm2.contiguous(), c1, c2, scale)
+
+
+def decode_attention_stats(q, k, v, kv_len, block_s: int = 512):
+    """Unnormalized ``(o, m, l)`` of one query token for the cross-shard
+    split-KV merge: q (B, H, D), k/v (B, S, Hkv, D); o is (B, Hkv, G, D),
+    m and l (B, Hkv, G, 1), all fp32.  ``block_s`` is the number of cache
+    positions one CUDA block reduces (the kernel's split of S) and, with
+    ``kv_len`` 0, sets the padded length reported in l.
+
+    With ``kv_len`` 0 the JAX wrapper, which pads S to a multiple of
+    ``block_s``, returns m = -1e30, o = the sum of v and l = the padded
+    length: l here is the padded length too.  ``kv_len`` past S raises
+    (the JAX wrapper would count its zero padding as valid positions)."""
+    kv_len = int(kv_len)
+    b, h, d = q.shape
+    hkv = k.shape[2]
+    if h % hkv:
+        raise ValueError(f"{h} query heads do not group over {hkv} KV heads")
+    qg = q.reshape(b, hkv, h // hkv, d)
+    o, m, l = _da.decode_attention_stats(qg, k, v, kv_len, block_s)
+    if kv_len == 0:
+        s = k.shape[1]
+        l = l + (-(-s // block_s) * block_s - s)
+    return o, m, l
+
+
+def decode_attention(q, k, v, kv_len, block_s: int = 512) -> torch.Tensor:
+    """Single-token GQA decode attention over a (possibly padded) KV cache:
+    q (B, H, D), k/v (B, S, Hkv, D) -> (B, H, D) in q's dtype."""
+    o, _, l = decode_attention_stats(q, k, v, kv_len, block_s)
+    out = o / torch.clamp_min(l, 1e-30)
+    return out.reshape(q.shape).to(q.dtype)

@@ -8,8 +8,13 @@ follows the same order is bitwise equal to it.
 
 from __future__ import annotations
 
+import math
+
+import numpy as np
 import torch
 import torch.nn.functional as F
+
+NEG_FILL = -1e30      # the Pallas decode kernel's mask value
 
 
 def stencil2d5_ref(g: torch.Tensor) -> torch.Tensor:
@@ -162,3 +167,54 @@ def fused_iter_ref(S, idx, scal, apply_a, prec, layout):
 
     out, mat, u_new = fused_iter_unfused(S, idx, scal, apply_a, prec, layout)
     return out, dot_block_rows(mat, u_new)
+
+
+def fused_dots_ref(mat: torch.Tensor, vec: torch.Tensor) -> torch.Tensor:
+    """(K, N) x (N,) or (N, S) in fp32, cast back to ``mat``'s dtype: the
+    plain version of ``csrc/fused_dots.cu``."""
+    return (mat.float() @ vec.float()).to(mat.dtype)
+
+
+def fused_axpy3_ref(zk1, zm1, zm2, c1, c2, scale):
+    """((zk1 + c1*zm1) + c2*zm2) * scale in fp32, each scalar rounded to
+    fp32 first, cast back to ``zk1``'s dtype: the plain version of
+    ``csrc/fused_axpy.cu``, one rounding per operation in this order."""
+    c1, c2, scale = (float(np.float32(float(c))) for c in (c1, c2, scale))
+    out = (zk1.float() + c1 * zm1.float() + c2 * zm2.float()) * scale
+    return out.to(zk1.dtype)
+
+
+def decode_attention_ref(q, k, v, kv_len):
+    """q (B,Hkv,G,D), k/v (B,Hkv,S,D), kv_len an int -> (B,Hkv,G,D) fp32:
+    the normalized oracle, as in the JAX package (``-inf`` mask fill, so a
+    row with no valid column is NaN)."""
+    d = q.shape[-1]
+    s = k.shape[2]
+    scale = 1.0 / math.sqrt(d)
+    scores = torch.einsum("bhgd,bhsd->bhgs", q.float(), k.float()) * scale
+    mask = torch.arange(s, device=q.device)[None, None, None, :] < kv_len
+    scores = torch.where(mask, scores, -math.inf)
+    w = torch.softmax(scores, dim=-1)
+    return torch.einsum("bhgs,bhsd->bhgd", w, v.float())
+
+
+def decode_attention_stats_ref(q, k, v, kv_len):
+    """The plain version of ``csrc/decode_attention.cu``: q (B,Hkv,G,D),
+    k/v in the callers' (B,S,Hkv,D) layout, kv_len an int ->
+    ``(o_unnorm (B,Hkv,G,D), m (B,Hkv,G,1), l (B,Hkv,G,1))``, all fp32.
+
+    Masked scores are -1e30, as in the Pallas kernel: with no valid column
+    m is -1e30, every column weighs exp(0) = 1, l counts the S columns and
+    o is the sum of v.  The softmax statistics are taken over the whole row
+    at once; the kernel's online form equals them up to rounding."""
+    d = q.shape[-1]
+    s = k.shape[1]
+    scale = 1.0 / math.sqrt(d)
+    scores = torch.einsum("bhgd,bshd->bhgs", q.float(), k.float()) * scale
+    mask = torch.arange(s, device=q.device)[None, None, None, :] < kv_len
+    scores = torch.where(mask, scores, NEG_FILL)
+    m = scores.amax(dim=-1, keepdim=True)
+    p = torch.exp(scores - m)
+    l = p.sum(dim=-1, keepdim=True)
+    o = torch.einsum("bhgs,bshd->bhgd", p, v.float())
+    return o, m, l

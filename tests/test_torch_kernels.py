@@ -1,0 +1,317 @@
+"""The port's fused dot block, fused three-term recurrence, decode attention
+and split-KV merge (``repro_torch.kernels.ops``, ``repro_torch.models.
+attention``), held against the JAX package on the CPU at small sizes.  The
+JAX side runs its Pallas kernels in interpret mode (``repro.kernels.ops``)
+and its oracles (``repro.kernels.ref``); inputs come from a numpy seed.
+
+Tolerances:
+* fused dots: both sides cast to fp32 and accumulate in fp32, in other
+  orders, so per entry |diff| <= 1e-5 * sum_j |m_kj v_js| (an fp32
+  accumulation bound: about 80 fp32 ulps of the sum of magnitudes).
+* fused_axpy3: the port rounds each multiply and add on its own; XLA may
+  contract a multiply-add into one FMA, which drops up to two of the four
+  roundings.  Per element |diff| <= 4 * eps32 * (|x| + |c1 y| + |c2 z|) *
+  |s|.
+* decode attention: fp32 softmax and products summed in other orders;
+  rtol = atol = 2e-4, the JAX package's own bound for its kernel
+  (``tests/test_kernels.py``).  m is a max of fp32 scores: rtol 1e-5.
+* the split-KV merge of the port against JAX's on the same statistics: one
+  exp and a sum over at most 8 shards in fp32, rtol = atol = 1e-6.
+* ``decode_attention_torch`` against ``decode_attention_jnp``: the same
+  fp32 formula with other sum orders, rtol = atol = 2e-5.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+torch.set_num_threads(1)
+
+try:
+    import jax
+    import jax.numpy as jnp
+
+    jax.config.update("jax_enable_x64", True)
+    from repro.kernels import ops as jops
+    from repro.kernels import ref as jref
+    from repro.models import attention as jatt
+except ImportError:     # a card's machine without JAX runs the cuda tests
+    jax = None
+
+from repro_torch.kernels import _build  # noqa: E402
+from repro_torch.kernels import decode_attention as tda  # noqa: E402
+from repro_torch.kernels import fused_axpy as tfa  # noqa: E402
+from repro_torch.kernels import fused_dots as tfd  # noqa: E402
+from repro_torch.kernels import ops as tops  # noqa: E402
+from repro_torch.kernels import ref as tref  # noqa: E402
+from repro_torch.models import attention as tatt  # noqa: E402
+
+DOTS_BOUND = 1e-5
+EPS32 = float(np.finfo(np.float32).eps)
+ATT_TOL = 2e-4
+
+
+@pytest.fixture
+def with_jax():
+    if jax is None:
+        pytest.skip("needs JAX, the reference")
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card (torch.cuda.is_available() is "
+                    "False)")
+    return torch.device("cuda")
+
+
+def _normal(rng, shape, dtype=np.float32):
+    return rng.standard_normal(shape).astype(dtype)
+
+
+def _assert_dots(got, want, m, vecs):
+    scale = np.abs(m.astype(np.float64)) @ np.abs(vecs.astype(np.float64))
+    err = np.abs(np.asarray(got, np.float64) - np.asarray(want, np.float64))
+    assert (err <= DOTS_BOUND * scale).all(), float((err / scale).max())
+
+
+@pytest.mark.parametrize("k,n,s", [(1, 128, 1), (5, 1000, 8), (7, 16384, 3),
+                                   (11, 5000, 16), (3, 777, 1)])
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_fused_dots_match_jax(k, n, s, dtype, with_jax):
+    rng = np.random.default_rng(k * n + s)
+    m = _normal(rng, (k, n), dtype)
+    vecs = _normal(rng, (n, s), dtype)
+    got = tops.fused_dots_mrhs(torch.tensor(m), torch.tensor(vecs))
+    assert got.shape == (k, s) and got.dtype == torch.tensor(m).dtype
+    _assert_dots(got.numpy(), jops.fused_dots_mrhs(jnp.asarray(m),
+                                                   jnp.asarray(vecs)), m, vecs)
+    _assert_dots(got.numpy(), jref.fused_dots_ref(jnp.asarray(m),
+                                                  jnp.asarray(vecs)), m, vecs)
+    if s == 1:
+        one = tops.fused_dots(torch.tensor(m), torch.tensor(vecs[:, 0]))
+        assert one.shape == (k,)
+        _assert_dots(one.numpy()[:, None],
+                     np.asarray(jops.fused_dots(jnp.asarray(m),
+                                                jnp.asarray(vecs[:, 0])))[:, None],
+                     m, vecs)
+
+
+@pytest.mark.parametrize("coeffs", [(0.5, -1.25, 2.0), (0.0, 0.0, 1.0),
+                                    (1e3, -1e-3, 0.1)])
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_fused_axpy3_matches_jax(coeffs, dtype, with_jax):
+    rng = np.random.default_rng(7)
+    c1, c2, s = coeffs
+    for n in (1000, 4099):
+        x, y, z = (_normal(rng, (n,), dtype) for _ in range(3))
+        got = tops.fused_axpy3(torch.tensor(x), torch.tensor(y),
+                               torch.tensor(z), c1, c2, s)
+        assert got.dtype == torch.tensor(x).dtype and got.shape == (n,)
+        bound = 4 * EPS32 * (np.abs(x) + abs(c1) * np.abs(y)
+                             + abs(c2) * np.abs(z)) * abs(s)
+        args = tuple(jnp.asarray(a) for a in (x, y, z)) + coeffs
+        for want in (jops.fused_axpy3(*args), jref.fused_axpy3_ref(*args)):
+            assert np.asarray(want).dtype == x.dtype
+            err = np.abs(got.numpy().astype(np.float64)
+                         - np.asarray(want, np.float64))
+            assert (err <= bound).all()
+
+
+@pytest.mark.parametrize("b,h,hkv,d,s,kv_len,bs", [
+    (2, 8, 2, 64, 1000, 900, 256),    # GQA, kv_len < S, ragged last block
+    (1, 4, 4, 32, 512, 512, 128),     # MHA
+    (3, 6, 1, 16, 300, 123, 512),     # MQA, one block longer than S
+])
+def test_decode_attention_matches_jax(b, h, hkv, d, s, kv_len, bs, with_jax):
+    rng = np.random.default_rng(s + kv_len)
+    q = _normal(rng, (b, h, d))
+    k = _normal(rng, (b, s, hkv, d))
+    v = _normal(rng, (b, s, hkv, d))
+    tq, tk, tv = torch.tensor(q), torch.tensor(k), torch.tensor(v)
+    jq, jk, jv = jnp.asarray(q), jnp.asarray(k), jnp.asarray(v)
+    out = tops.decode_attention(tq, tk, tv, kv_len, block_s=bs)
+    assert out.shape == (b, h, d) and out.dtype == torch.float32
+    np.testing.assert_allclose(
+        out.numpy(), jops.decode_attention(jq, jk, jv, kv_len, block_s=bs),
+        rtol=ATT_TOL, atol=ATT_TOL)
+    o, m, l = tops.decode_attention_stats(tq, tk, tv, kv_len, block_s=bs)
+    jo, jm, jl = jops.decode_attention_stats(jq, jk, jv, kv_len, block_s=bs)
+    assert o.shape == (b, hkv, h // hkv, d) and m.shape == l.shape == (
+        b, hkv, h // hkv, 1)
+    np.testing.assert_allclose(m.numpy(), jm, rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose((o / l).numpy(), np.asarray(jo / jl),
+                               rtol=ATT_TOL, atol=ATT_TOL)
+    # The oracle copy (-inf fill, (B, Hkv, S, D) layout) against JAX's.
+    g = h // hkv
+    want = jref.decode_attention_ref(jq.reshape(b, hkv, g, d),
+                                     jnp.transpose(jk, (0, 2, 1, 3)),
+                                     jnp.transpose(jv, (0, 2, 1, 3)), kv_len)
+    got = tref.decode_attention_ref(tq.reshape(b, hkv, g, d),
+                                    tk.permute(0, 2, 1, 3),
+                                    tv.permute(0, 2, 1, 3), kv_len)
+    np.testing.assert_allclose(got.numpy(), want, rtol=ATT_TOL, atol=ATT_TOL)
+    np.testing.assert_allclose(out.numpy(), got.reshape(b, h, d).numpy(),
+                               rtol=ATT_TOL, atol=ATT_TOL)
+
+
+def test_decode_attention_kv_len_zero_matches_jax_wrapper(with_jax):
+    """With no valid position the JAX wrapper (S padded to a multiple of
+    block_s, scores -1e30) returns m = -1e30, o = the sum of v and l = the
+    padded length; the port returns the same, where the JAX oracle's
+    -inf fill gives NaN."""
+    rng = np.random.default_rng(3)
+    b, h, hkv, d, s, bs = 2, 4, 2, 32, 300, 128
+    q, k, v = (_normal(rng, sh) for sh in ((b, h, d), (b, s, hkv, d),
+                                           (b, s, hkv, d)))
+    o, m, l = tops.decode_attention_stats(torch.tensor(q), torch.tensor(k),
+                                          torch.tensor(v), 0, block_s=bs)
+    jo, jm, jl = jops.decode_attention_stats(jnp.asarray(q), jnp.asarray(k),
+                                             jnp.asarray(v), 0, block_s=bs)
+    np.testing.assert_array_equal(m.numpy(), jm)
+    np.testing.assert_array_equal(l.numpy(), jl)
+    assert float(l.flatten()[0]) == 384.0
+    np.testing.assert_allclose(o.numpy(), jo, rtol=ATT_TOL, atol=ATT_TOL)
+    out = tops.decode_attention(torch.tensor(q), torch.tensor(k),
+                                torch.tensor(v), 0, block_s=bs)
+    np.testing.assert_allclose(
+        out.numpy(), jops.decode_attention(jnp.asarray(q), jnp.asarray(k),
+                                           jnp.asarray(v), 0, block_s=bs),
+        rtol=ATT_TOL, atol=ATT_TOL)
+    assert torch.isfinite(out).all()
+
+
+@pytest.mark.parametrize("shards,kv_len", [(2, 512), (8, 512), (8, 300)])
+def test_split_kv_merge_identity(shards, kv_len, with_jax):
+    """Each shard's stats (its own valid length, 0 for a shard past
+    kv_len) merged with ``merge_decode_shards`` equal the whole-cache
+    decode, and the port's merge equals JAX's (pmax + psum over a vmapped
+    shard axis) on the same statistics."""
+    rng = np.random.default_rng(shards + kv_len)
+    b, h, hkv, d, s = 2, 4, 2, 32, 512
+    q = torch.tensor(_normal(rng, (b, h, d)))
+    k = torch.tensor(_normal(rng, (b, s, hkv, d)))
+    v = torch.tensor(_normal(rng, (b, s, hkv, d)))
+    w = s // shards
+    stats = [tops.decode_attention_stats(
+        q, k[:, i * w:(i + 1) * w].contiguous(),
+        v[:, i * w:(i + 1) * w].contiguous(),
+        min(max(kv_len - i * w, 0), w), block_s=32) for i in range(shards)]
+    o, m, l = (torch.stack([st[j] for st in stats]) for j in range(3))
+    merged = tatt.merge_decode_shards(o, m, l).reshape(b, h, d)
+    full = tops.decode_attention(q, k, v, kv_len, block_s=128)
+    np.testing.assert_allclose(merged.numpy(), full.numpy(), rtol=ATT_TOL,
+                               atol=ATT_TOL)
+    np.testing.assert_allclose(
+        merged.numpy(), jops.decode_attention(
+            jnp.asarray(q.numpy()), jnp.asarray(k.numpy()),
+            jnp.asarray(v.numpy()), kv_len, block_s=128),
+        rtol=ATT_TOL, atol=ATT_TOL)
+    jmerge = jax.vmap(lambda a, bb, c: jatt.merge_decode_shards(a, bb, c, "p"),
+                      axis_name="p")
+    jm = np.asarray(jmerge(jnp.asarray(o.numpy()), jnp.asarray(m.numpy()),
+                           jnp.asarray(l.numpy())))[0]
+    np.testing.assert_allclose(merged.numpy(), jm.reshape(b, h, d),
+                               rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("b,h,hkv,d,s,kv_len", [
+    (2, 8, 2, 64, 200, 150), (1, 4, 4, 32, 64, 64), (3, 6, 1, 16, 100, 1)])
+def test_decode_attention_torch_matches_jnp(b, h, hkv, d, s, kv_len, with_jax):
+    assert jatt.DECODE_UPCAST
+    rng = np.random.default_rng(b * s + kv_len)
+    q, k, v = (_normal(rng, sh) for sh in ((b, h, d), (b, s, hkv, d),
+                                           (b, s, hkv, d)))
+    got = tatt.decode_attention_torch(torch.tensor(q), torch.tensor(k),
+                                      torch.tensor(v), kv_len)
+    want = jatt.decode_attention_jnp(jnp.asarray(q), jnp.asarray(k),
+                                     jnp.asarray(v), kv_len)
+    assert got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), want, rtol=2e-5, atol=2e-5)
+    kern = tops.decode_attention(torch.tensor(q), torch.tensor(k),
+                                 torch.tensor(v), kv_len)
+    np.testing.assert_allclose(kern.numpy(), got.numpy(), rtol=ATT_TOL,
+                               atol=ATT_TOL)
+
+
+@pytest.mark.parametrize("case", ["kv_len_past_s", "kv_len_negative",
+                                  "heads_not_grouped", "meta_device"])
+def test_entry_points_refuse(case):
+    q = torch.zeros(1, 4, 16)
+    k = torch.zeros(1, 8, 2, 16)
+    if case == "kv_len_past_s":
+        with pytest.raises(ValueError, match="kv_len"):
+            tops.decode_attention(q, k, k, 9)
+    elif case == "kv_len_negative":
+        with pytest.raises(ValueError, match="kv_len"):
+            tops.decode_attention_stats(q, k, k, -1)
+    elif case == "heads_not_grouped":
+        with pytest.raises(ValueError, match="heads"):
+            tops.decode_attention(torch.zeros(1, 3, 16), k, k, 4)
+    else:
+        meta = torch.device("meta")
+        with pytest.raises(ValueError, match="device"):
+            tfd.fused_dots_mrhs(torch.zeros(2, 8, device=meta),
+                                torch.zeros(8, 1, device=meta))
+        with pytest.raises(ValueError, match="device"):
+            tfa.fused_axpy3(*(torch.zeros(8, device=meta),) * 3, 1, 1, 1)
+        with pytest.raises(ValueError, match="device"):
+            tda.decode_attention_stats(q.reshape(1, 2, 2, 16).to(meta),
+                                       k.to(meta), k.to(meta), 4)
+
+
+@pytest.mark.cuda
+def test_fused_dots_on_card(cuda_device):
+    rng = np.random.default_rng(11)
+    for dt in (torch.float64, torch.float32):
+        for k, n, s in ((5, 100003, 1), (5, 100003, 8), (11, 5000, 16),
+                        (3, 70000, 20), (20, 3000, 2)):
+            m = torch.tensor(rng.standard_normal((k, n)), dtype=dt,
+                             device=cuda_device)
+            vecs = torch.tensor(rng.standard_normal((n, s)), dtype=dt,
+                                device=cuda_device)
+            before = _build.LAUNCHES["fused_dots"]
+            got = tfd.fused_dots_mrhs(m, vecs)
+            assert _build.LAUNCHES["fused_dots"] == before + 1
+            assert torch.equal(got, tfd.fused_dots_mrhs(m, vecs))
+            _assert_dots(got.cpu().numpy(),
+                         tfd.fused_dots_plain(m, vecs).cpu().numpy(),
+                         m.cpu().numpy(), vecs.cpu().numpy())
+
+
+@pytest.mark.cuda
+def test_fused_axpy3_on_card(cuda_device):
+    rng = np.random.default_rng(12)
+    for dt in (torch.float32, torch.float64):
+        for n in (1, 1000, 4099):
+            x, y, z = (torch.tensor(rng.standard_normal(n), dtype=dt,
+                                    device=cuda_device) for _ in range(3))
+            for c in ((0.5, -1.25, 2.0), (0.0, 0.0, 1.0), (1e3, -1e-3, 0.1)):
+                assert torch.equal(tfa.fused_axpy3(x, y, z, *c),
+                                   tfa.fused_axpy3_plain(x, y, z, *c))
+            # an unaligned view takes the element-wise path
+            assert torch.equal(tfa.fused_axpy3(x[1:], y[1:], z[1:], 0.5, 2, 3),
+                               tfa.fused_axpy3_plain(x[1:], y[1:], z[1:], 0.5,
+                                                     2, 3))
+
+
+@pytest.mark.cuda
+def test_decode_attention_on_card(cuda_device):
+    rng = np.random.default_rng(13)
+    for (b, h, hkv, d, s, kv_len, bs, dt) in [
+            (2, 8, 2, 64, 1000, 900, 256, torch.float32),
+            (1, 4, 4, 32, 512, 512, 128, torch.float32),
+            (3, 6, 1, 16, 300, 123, 512, torch.float32),
+            (2, 16, 8, 128, 2048, 1999, 512, torch.bfloat16),
+            (1, 4, 2, 256, 700, 0, 64, torch.float32),
+            (1, 32, 2, 64, 999, 998, 100, torch.float32)]:
+        q = torch.tensor(rng.standard_normal((b, h, d)), dtype=torch.float32,
+                         device=cuda_device)
+        k, v = (torch.tensor(rng.standard_normal((b, s, hkv, d)),
+                             device=cuda_device).to(dt) for _ in range(2))
+        qg = q.reshape(b, hkv, h // hkv, d)
+        o, m, l = tda.decode_attention_stats(qg, k, v, kv_len, bs)
+        op, mp, lp = tda.decode_attention_stats_plain(qg, k, v, kv_len)
+        torch.testing.assert_close(o / l, op / lp, rtol=ATT_TOL, atol=ATT_TOL)
+        torch.testing.assert_close(m, mp, rtol=1e-5, atol=1e-5)
+        torch.testing.assert_close(l, lp, rtol=1e-5, atol=1e-5)
