@@ -7,7 +7,9 @@ Phases, each printed as one JSON line; every phase raises on failure:
 
 1. build: compile every CUDA kernel from ``src/repro_torch/kernels/csrc``;
 2. kernels vs plain: each kernel against its plain PyTorch version at the
-   main path's shapes (rows bitwise; dot partials within the stated bound);
+   main path's shapes (rows bitwise; dot partials within the stated bound),
+   the superkernel at l in {1, 2, 3} and, on the main stencil, at the two
+   deepest pipelines it is built for (l = 7, 8);
 3. main solve: ``LocalBackend().solve`` on ``laplace2d.config()`` (2048^2,
    fp64) with p(2)-CG, Jacobi and the fused superkernel, to tol 1e-6
    (maxit and max_restarts raised from the config's, see below);
@@ -18,25 +20,33 @@ Phases, each printed as one JSON line; every phase raises on failure:
 6. small reference: the card's fused solve of the smoke-size problem
    against the port's CPU path;
 7. the unstructured ice sheet (``icesheet3d.config()``, 500 000 FEM
-   nodes, ELL, RCM-ordered): ``ell_spmv`` and the superkernel's ELL
-   plug-in against their plain versions at its shape, the fused p(2)-CG
-   solve (Jacobi in place of the config's block-Jacobi, which is not
-   ported), fused vs plain vector phase, an unfused solve through the
+   nodes, ELL, RCM-ordered): ``ell_spmv`` bitwise against its plain
+   version at its shape, with x longer than R, with misaligned bases
+   (staging by ordinary loads), and on random operators that reach every
+   other path (ragged tiles, odd and even W, the direct kernel for a W too
+   wide to stage); the superkernel's ELL
+   plug-in against its plain version (l in {1, 2, 3, 7, 8}); the fused
+   p(2)-CG solve (Jacobi in place of the config's block-Jacobi, which is
+   not ported), fused vs plain vector phase, an unfused solve through the
    ELL kernel against the plain operator, and the smoke-size ice sheet
    on the card against the port's CPU path;
 8. timings per kernel (CUDA events), their bounds and yardsticks, and a
-   profiler split of one solve iteration;
+   profiler split of one solve iteration; ``ell_spmv`` and its cuSPARSE
+   yardstick also by device time (``torch.profiler``), in turns;
 9. the kernel entry points of ``repro_torch.kernels.ops``: ``fused_dots``
    and ``fused_dots_mrhs`` at the ``laplace2d`` slab's width (K = 5,
    N = 2048^2, S in {1, 8}, fp64 and fp32) within an fp32 accumulation
-   bound of their plain version; ``fused_axpy3`` (N = 2048^2, fp32)
+   bound of their plain version, the same bits on a second call, and at
+   tail shapes (K in {1, 17}, N not a multiple of the vector width,
+   misaligned bases); ``fused_axpy3`` (N = 2048^2, fp32)
    bitwise equal to its plain version; ``decode_attention`` and
    ``decode_attention_stats`` at Qwen3-1.7B's attention (H = 16, Hkv = 8,
    D = 128, fp32) and the two decode shapes (``decode_32k``: B = 16,
    S = 32 768, kv_len 32 768 and 30 001; ``long_500k``: B = 1,
    S = 524 288) within 2e-4 of their plain version, and the 32k cache split
    into 8 shards, merged by ``merge_decode_shards``, against the
-   whole-cache decode; then the timings of the three kernels.
+   whole-cache decode; then the timings of the three kernels, with
+   ``fused_dots`` and its cuBLAS yardstick also by device time, in turns.
 
 It then prints the card's name and power limit, a ``kernels`` line, and
 as the last line ``{"ok": true, "device": {...}}``.  Without a card, or
@@ -91,6 +101,58 @@ def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / reps
+
+
+def device_ms(fn, reps: int = 20, warmup: int = 3, tries: int = 3):
+    """The device time of one call of ``fn``: the summed duration of every
+    kernel (and copy) that ``reps`` calls run, from ``torch.profiler``, over
+    ``reps``.  Unlike ``cuda_ms`` it leaves out the host's time to enqueue.
+    The profiler can drop device events: a window in which it saw no device
+    time, or a count of device events that is not a whole number per call,
+    is taken again, up to ``tries`` times; None if none was whole."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(warmup):
+        fn()
+    for _ in range(tries):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        total_us, events = 0.0, 0
+        for e in prof.key_averages():
+            if getattr(e, "device_type", None) != \
+                    torch.autograd.DeviceType.CUDA:
+                continue
+            t = getattr(e, "self_device_time_total", None)
+            if t is None:
+                t = getattr(e, "self_cuda_time_total", 0.0)
+            total_us += t
+            events += e.count
+        if total_us > 0 and events % reps == 0:
+            return total_us / 1e3 / reps
+    return None
+
+
+def in_turns(fns: dict, reps: int = 20) -> dict:
+    """Event time and device time of each function, measured in turns (the
+    order forward, then backward), so that no function is always timed
+    first: {name: {"ms", "device_ms", "ms_turns", "device_ms_turns"}}, the
+    first two the means of the two turns."""
+    names = list(fns)
+    got = {n: {"ms_turns": [], "device_ms_turns": []} for n in names}
+    for order in (names, names[::-1]):
+        for n in order:
+            got[n]["ms_turns"].append(cuda_ms(fns[n], reps=reps))
+            got[n]["device_ms_turns"].append(device_ms(fns[n], reps=reps))
+    for g in got.values():
+        g["ms"] = sum(g["ms_turns"]) / 2
+        d = g["device_ms_turns"]
+        g["device_ms"] = None if None in d else sum(d) / 2
+    return got
 
 
 def bound_fields(nbytes: float, flops: float) -> dict:
@@ -230,29 +292,65 @@ def entry_points_phase(dev, gen, n: int, k: int) -> tuple[dict, dict, dict]:
     torch.cuda.synchronize()
     launches = dict(_build.LAUNCHES)
 
+    # -- fused_dots: the same bits twice, and the redesign's tail paths ----
+    # (after the path's counts are read: these launches are checks only).
+    # The main shape in both dtypes and S in {1, 8}; then one row and 17
+    # rows (three row chunks), N not a multiple of the vector width, bases
+    # one element off the 16-byte grid, S not a multiple of it.
+    tails = {}
+    cases = [(k, n, ss, 0, dt) for ss in (1, 8)
+             for dt in (torch.float64, torch.float32)]
+    cases += [(kk, nn, ss, off, dt)
+              for kk, nn, ss, off in ((1, n + 1, 1, 1), (17, 4099, 1, 0),
+                                      (17, 4099, 8, 1), (5, 100003, 3, 0))
+              for dt in (torch.float64, torch.float32)]
+    for kk, nn, ss, off, dt in cases:
+        mat = randn(kk * nn + off, dtype=dt)[off:].view(kk, nn)
+        vecs = randn(nn * ss + off, dtype=dt)[off:].view(nn, ss)
+        got = kops.fused_dots_mrhs(mat, vecs)
+        abs_err, rel = dots_err(got, mat, vecs)
+        same = bool(torch.equal(got, kops.fused_dots_mrhs(mat, vecs)))
+        tails[f"k{kk}_n{nn}_s{ss}_off{off}_{str(dt)[6:]}"] = {
+            "max_abs_diff": abs_err, "max_diff_over_abs_sum": rel,
+            "same_bits_twice": same}
+        if not rel <= DOTS_BOUND or not same:
+            raise AssertionError(f"fused_dots k={kk} n={nn} s={ss} off={off} "
+                                 f"{dt}: beyond its bound or not the same "
+                                 "bits twice")
+        del mat, vecs, got
+    emit({"phase": "fused_dots_tails_vs_plain", "cases": tails,
+          "bound": DOTS_BOUND})
+
     # -- timings (CUDA events) --------------------------------------------
+    # The redesigned fused_dots against cuBLAS, in turns, with device time.
+    # fp32 is the same function as torch.matmul on the same inputs; for fp64
+    # the yardstick runs on fp32 copies made outside the timed window (it
+    # skips the two casts and reads half the bytes).
     timings = {}
     mat = randn(k, n)
     vec = randn(n)
     m32, v32 = mat.float(), vec.float()
-    timings["fused_dots"] = dict(
-        ms=cuda_ms(lambda: fd.fused_dots(mat, vec)),
-        plain_ms=cuda_ms(lambda: fd.fused_dots_plain(mat, vec)),
-        library_ms=cuda_ms(lambda: torch.matmul(m32, v32)),
-        **bound_fields((k * n + n) * 8 + k * 8, 2 * k * n))
-    timings["fused_dots_fp32"] = dict(
-        ms=cuda_ms(lambda: fd.fused_dots(m32, v32)),
-        plain_ms=cuda_ms(lambda: fd.fused_dots_plain(m32, v32)),
-        library_ms=cuda_ms(lambda: torch.matmul(m32, v32)),
-        **bound_fields((k * n + n) * 4 + k * 4, 2 * k * n))
     vecs = randn(n, 8)
     V32 = vecs.float()
-    timings["fused_dots_mrhs_s8"] = dict(
-        ms=cuda_ms(lambda: fd.fused_dots_mrhs(mat, vecs)),
-        plain_ms=cuda_ms(lambda: fd.fused_dots_plain(mat, vecs)),
-        library_ms=cuda_ms(lambda: torch.matmul(m32, V32)),
-        **bound_fields((k * n + 8 * n) * 8 + 8 * k * 8, 2 * k * n * 8))
-    del mat, vec, vecs, m32, v32, V32
+    for key, a, b, lib_b, nbytes in (
+            ("fused_dots", mat, vec, v32, (k * n + n) * 8 + k * 8),
+            ("fused_dots_fp32", m32, v32, v32, (k * n + n) * 4 + k * 4),
+            ("fused_dots_mrhs_s8", mat, vecs, V32,
+             (k * n + 8 * n) * 8 + 8 * k * 8)):
+        call = fd.fused_dots if b.dim() == 1 else fd.fused_dots_mrhs
+        t = in_turns({"kernel": lambda: call(a, b),
+                      "library": lambda: torch.matmul(m32, lib_b)})
+        timings[key] = dict(
+            ms=t["kernel"]["ms"], device_ms=t["kernel"]["device_ms"],
+            ms_turns=t["kernel"]["ms_turns"],
+            device_ms_turns=t["kernel"]["device_ms_turns"],
+            plain_ms=cuda_ms(lambda: fd.fused_dots_plain(a, b)),
+            library_ms=t["library"]["ms"],
+            library_device_ms=t["library"]["device_ms"],
+            library_same_function=a.dtype == torch.float32,
+            **bound_fields(nbytes, 2 * k * n * (1 if b.dim() == 1 else
+                                                b.shape[1])))
+    del mat, vec, vecs, m32, v32, V32, a, b, lib_b
     x, y, z = (randn(n, dtype=torch.float32) for _ in range(3))
     timings["fused_axpy3"] = dict(
         ms=cuda_ms(lambda: fa.fused_axpy3(x, y, z, 0.5, -1.25, 2.0)),
@@ -340,14 +438,14 @@ def main() -> int:
         scal[IS["eta0_safe"]] = 1.5
         return scal
 
-    def superkernel_vs_plain(operators):
+    def superkernel_vs_plain(operators, depths=(1, 2, 3)):
         """The superkernel against the plain vector phase for each
-        operator, l in {1, 2, 3}, both recurrences, Jacobi and identity,
+        operator, each depth l, both recurrences, Jacobi and identity,
         at several cycle positions: (rows' max abs diff, partials' max
         |diff| / sum |m u|, cases)."""
         row_err, part_err, cases = 0.0, 0.0, 0
         for op in operators:
-            for l in (1, 2, 3):
+            for l in depths:
                 for rec in ("ghysels", "stable"):
                     for jac in (True, False):
                         prec = JacobiPrec.from_operator(op) if jac else None
@@ -408,7 +506,15 @@ def main() -> int:
         Stencil2D5(lap.nx, lap.ny), Stencil3D7(64, 50, 38, eps_z=ice.eps_z),
         Stencil3D27(64, 64, 32),
         DiagonalOp(laplacian_2d_spectrum(lap.nx, lap.ny))])
-    emit({"phase": "superkernel_vs_plain", "cases": cases,
+    # The deepest pipelines the kernel is instantiated for (LMAX = 8), on
+    # the main problem's stencil at full size.
+    deep_row, deep_part, deep_cases = superkernel_vs_plain(
+        [Stencil2D5(lap.nx, lap.ny)], depths=(fi.LMAX - 1, fi.LMAX))
+    row_err, part_err = max(row_err, deep_row), max(part_err, deep_part)
+    emit({"phase": "superkernel_vs_plain", "cases": cases + deep_cases,
+          "depths": [1, 2, 3, fi.LMAX - 1, fi.LMAX],
+          "deep_cases": deep_cases, "deep_rows_max_abs_diff": deep_row,
+          "deep_partials_max_diff_over_abs_sum": deep_part,
           "rows_max_abs_diff": row_err,
           "partials_max_diff_over_abs_sum": part_err,
           "partials_bound": PARTIAL_BOUND})
@@ -534,21 +640,56 @@ def main() -> int:
     iop = build_operator(ice_prob)
     setup_s = time.perf_counter() - t0
     ix = randn(iop.n)
-    ell_err = {}
+    ell_err, ell_same = {}, {}
+
+    def ell_check(key, x, cols, vals):
+        """The kernel against the plain version, bitwise."""
+        plain = ell_spmv.ell_spmv_plain(x, cols, vals)
+        got = ell_spmv.ell_spmv(x, cols, vals)
+        ell_same[key] = bool(torch.equal(got, plain))
+        ell_err[key] = float((got - plain).abs().max())
+
+    xl = randn(iop.n + 7)        # x longer than R, as the halo path passes
     for name, dt in (("fp64", torch.float64), ("fp32", torch.float32)):
         v = iop.vals.to(dt)
-        ell_err[name] = float((ell_spmv.ell_spmv(ix, iop.cols, v)
-                               - ell_spmv.ell_spmv_plain(ix, iop.cols, v))
-                              .abs().max())
+        ell_check(name, ix, iop.cols, v)
+        ell_check(f"{name}_x_longer", xl, iop.cols, v)
+    # The kernel's other paths, each bitwise: the ice sheet with both bases
+    # one element off the 16-byte grid (every tile by ordinary loads);
+    # random operators with a ragged or exact tile count, fewer rows than a
+    # tile, odd and even W, and a W too wide to stage (the direct kernel).
+    rng = np.random.default_rng(5)
+
+    def offset_copy(t, off):
+        buf = torch.zeros(t.numel() + off, dtype=t.dtype, device=dev)
+        buf[off:] = t.reshape(-1)
+        return buf[off:].view(t.shape)
+
+    ell_check("icesheet_misaligned", ix, offset_copy(iop.cols, 1),
+              offset_copy(iop.vals, 1))
+    for rows, w, off in ((1000, 11, 0), (1000, 11, 1), (512, 12, 0),
+                         (5, 11, 0), (4097, 27, 3), (100, 400, 0)):
+        cols = torch.tensor(rng.integers(0, rows + 13, (rows, w)),
+                            dtype=torch.int32, device=dev)
+        vals = torch.tensor(rng.standard_normal((rows, w)), device=dev)
+        vals[:, 1:][torch.tensor(rng.random((rows, w - 1)) < 0.2,
+                                 device=dev)] = 0.0
+        xx = randn(rows + 13)
+        for dt in (torch.float64, torch.float32):
+            ell_check(f"r{rows}_w{w}_off{off}_{str(dt)[6:]}", xx,
+                      offset_copy(cols, off), offset_copy(vals.to(dt), off))
     emit({"phase": "ell_vs_plain", "n": iop.n, "w": iop.w, "nnz": iop.nnz,
-          "host_setup_s": setup_s, "max_abs_diff": ell_err})
-    if any(e != 0 for e in ell_err.values()):
+          "host_setup_s": setup_s,
+          "bitwise_equal": ell_same, "max_abs_diff": ell_err})
+    if not all(ell_same.values()):
         raise AssertionError("ell_spmv differs from its plain version")
     err["ell_spmv"] = max(ell_err.values())
 
     iprec = JacobiPrec.from_operator(iop)
-    row_err, part_err, cases = superkernel_vs_plain([iop])
+    depths = (1, 2, 3, fi.LMAX - 1, fi.LMAX)
+    row_err, part_err, cases = superkernel_vs_plain([iop], depths=depths)
     emit({"phase": "superkernel_ell_vs_plain", "cases": cases,
+          "depths": list(depths),
           "rows_max_abs_diff": row_err,
           "partials_max_diff_over_abs_sum": part_err,
           "partials_bound": PARTIAL_BOUND})
@@ -642,6 +783,46 @@ def main() -> int:
                              "ice sheet")
 
     # ---- 8. timings ------------------------------------------------------
+    # Where one iteration of the main solve goes: device time of the
+    # superkernel versus everything else, over a short profiled solve,
+    # taken before the timings below and their profiler windows.
+    from torch.profiler import ProfilerActivity, profile
+
+    prof_kw = dict(solve_kw, maxit=100, tol=1e-30)
+    be.solve(op, b, prec=prec, **prof_kw)
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        be.solve(op, b, prec=prec, **prof_kw)
+        torch.cuda.synchronize()
+        prof_wall = time.perf_counter() - t0
+    prof_iters = _build.LAUNCHES["fused_iter"]
+    dev_us = {"fused_iter_kernel": 0.0, "copy_row": 0.0,
+              "sum_partials": 0.0, "other": 0.0}
+    n_kernels = 0
+    for e in prof.key_averages():
+        t = getattr(e, "self_device_time_total", None)
+        if t is None:
+            t = getattr(e, "self_cuda_time_total", 0.0)
+        if not t or getattr(e, "device_type", None) != \
+                torch.autograd.DeviceType.CUDA:
+            continue
+        n_kernels += e.count
+        key = next((k for k in dev_us if k != "other" and k in e.key),
+                   "other")
+        dev_us[key] += t
+    busy_us = sum(dev_us.values())
+    emit({"phase": "iteration_split", "iterations": prof_iters,
+          "wall_ms_per_iter": 1e3 * prof_wall / max(prof_iters, 1),
+          "device_us_per_iter": {k: v / max(prof_iters, 1)
+                                 for k, v in dev_us.items()},
+          "device_kernels_per_iter": n_kernels / max(prof_iters, 1),
+          "device_busy_share": (busy_us * 1e-6 / prof_wall
+                                if prof_wall else None),
+          "gpu": gpu})
+
     timings = {}
     g2 = randn(lap.nx, lap.ny)
     w2 = torch.tensor([[0., -1., 0.], [-1., 4., -1.], [0., -1., 0.]],
@@ -700,11 +881,16 @@ def main() -> int:
     y_lib = csr @ ix
     err["csr_vs_ell_spmv"] = float((y_lib - ell_spmv.ell_spmv(
         ix, iop.cols, ivals)).abs().max())
+    # The kernel and cuSPARSE, in turns, with device time.
+    t = in_turns({"kernel": lambda: ell_spmv.ell_spmv(ix, iop.cols, ivals),
+                  "library": lambda: csr @ ix})
     timings["ell_spmv"] = {
-        "ms": cuda_ms(lambda: ell_spmv.ell_spmv(ix, iop.cols, ivals)),
+        "ms": t["kernel"]["ms"], "device_ms": t["kernel"]["device_ms"],
+        "turns": t,
         "plain_ms": cuda_ms(
             lambda: ell_spmv.ell_spmv_plain(ix, iop.cols, ivals)),
-        "library_ms": cuda_ms(lambda: csr @ ix),
+        "library_ms": t["library"]["ms"],
+        "library_device_ms": t["library"]["device_ms"],
         "bytes": (iop.cols.numel() * 4 + ivals.numel() * 8
                   + 2 * iop.n * 8),
     }
@@ -730,45 +916,6 @@ def main() -> int:
     emit({"phase": "timings", "gpu": gpu, "timings": timings,
           "conv2d_vs_stencil2d5_max_abs_diff": err["conv2d_vs_stencil2d5"],
           "csr_vs_ell_spmv_max_abs_diff": err["csr_vs_ell_spmv"]})
-
-    # Where one iteration of the main solve goes: device time of the
-    # superkernel versus everything else, over a short profiled solve.
-    from torch.profiler import ProfilerActivity, profile
-
-    prof_kw = dict(solve_kw, maxit=100, tol=1e-30)
-    be.solve(op, b, prec=prec, **prof_kw)
-    torch.cuda.synchronize()
-    _build.reset_launches()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        be.solve(op, b, prec=prec, **prof_kw)
-        torch.cuda.synchronize()
-        prof_wall = time.perf_counter() - t0
-    prof_iters = _build.LAUNCHES["fused_iter"]
-    dev_us = {"fused_iter_kernel": 0.0, "copy_row": 0.0,
-              "sum_partials": 0.0, "other": 0.0}
-    n_kernels = 0
-    for e in prof.key_averages():
-        t = getattr(e, "self_device_time_total", None)
-        if t is None:
-            t = getattr(e, "self_cuda_time_total", 0.0)
-        if not t or getattr(e, "device_type", None) != \
-                torch.autograd.DeviceType.CUDA:
-            continue
-        n_kernels += e.count
-        key = next((k for k in dev_us if k != "other" and k in e.key),
-                   "other")
-        dev_us[key] += t
-    busy_us = sum(dev_us.values())
-    emit({"phase": "iteration_split", "iterations": prof_iters,
-          "wall_ms_per_iter": 1e3 * prof_wall / max(prof_iters, 1),
-          "device_us_per_iter": {k: v / max(prof_iters, 1)
-                                 for k, v in dev_us.items()},
-          "device_kernels_per_iter": n_kernels / max(prof_iters, 1),
-          "device_busy_share": (busy_us * 1e-6 / prof_wall
-                                if prof_wall else None),
-          "gpu": gpu})
 
     # ---- 9. kernel entry points -----------------------------------------
     t0 = time.perf_counter()
@@ -817,7 +964,9 @@ def main() -> int:
             "replaces": replaces, "launches": launches,
             "max_abs_err": err[name], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
-            "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
+            "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+            "device_ms": t.get("device_ms"),
+            "library_device_ms": t.get("library_device_ms")})
     for k in kernels:
         if k["launches"] == 0:
             raise AssertionError(f"{k['name']} was never launched on its path")

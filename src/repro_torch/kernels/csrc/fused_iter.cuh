@@ -48,7 +48,7 @@
 namespace fi {
 
 constexpr int BLOCK = 256;
-constexpr int LMAX = 6;
+constexpr int LMAX = 8;
 
 enum { SPMV_2D5 = 0, SPMV_3D7 = 1, SPMV_3D27 = 2, SPMV_DIAG = 3,
        SPMV_ELL = 4 };

@@ -6,22 +6,83 @@ counterpart of the Pallas kernel in ``repro/kernels/ell_spmv.py``.
 long) and runs the plain PyTorch version ``ell_spmv_plain`` on CPU
 tensors.  Any other device raises.  The result has ``vals``' dtype; ``x``
 is cast to it first, as the plain version does.
+
+The kernel stages tiles of rows through shared memory; :func:`plan` is its
+launch plan (tile rows, ring stages, which tiles go by bulk copy, grid),
+chosen from the operator alone.
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 
 import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.ref import ell_spmv_ref as ell_spmv_plain
 
+TILE_ROWS = (256, 128, 64, 32)  # rows a tile (threads a block), in order
+STAGES = 2                      # ring buffers a block
+STAGE_BUDGET = 110 * 1024       # staged bytes a block: two blocks an SM
+BULK_ALIGN = 16                 # the bulk copy's address and size unit
+DIRECT_BLOCK = 256              # threads a block of the direct kernel
+
 _SIGS = {
-    "ell_spmv_launch": [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-                        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
+    "ell_spmv_launch": [ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+                        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                        ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+                        ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
                         ctypes.c_int, ctypes.c_void_p],
+    "ell_spmv_occupancy": [ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                           ctypes.POINTER(ctypes.c_int)],
 }
+
+
+@dataclasses.dataclass(frozen=True)
+class EllPlan:
+    """How one launch covers an (R, W) operator.
+
+    ``staged``: tiles of ``tile_rows`` rows, tile t = b, b + grid, ... for
+    block b, held in a ring of ``stages`` shared buffers of ``smem_bytes``
+    in all; tiles ``0 .. bulk_tiles - 1`` arrive by bulk copy, the rest by
+    ordinary loads.  Otherwise the direct kernel runs one thread a row from
+    device memory on blocks of ``tile_rows`` threads."""
+    staged: bool
+    rows: int
+    w: int
+    tile_rows: int
+    stages: int
+    tiles: int
+    bulk_tiles: int
+    grid: int
+    smem_bytes: int
+
+
+def plan(rows: int, w: int, itemsize: int, cols_offset: int,
+         vals_offset: int, sms: int, occupancy) -> EllPlan:
+    """The launch plan for ``rows`` x ``w`` slots of ``itemsize``-byte
+    values.  ``cols_offset`` and ``vals_offset`` are the base addresses
+    (only their residue mod 16 matters); ``occupancy(threads, smem_bytes)``
+    gives the blocks one SM holds, and ``sms`` the SMs, so the grid is one
+    wave.  Full tiles of an operator whose bases are both 16-byte aligned
+    go by bulk copy; the ragged last tile, and every tile of a misaligned
+    operator, by ordinary loads; an operator too wide for two stages of 32
+    rows in ``STAGE_BUDGET`` runs the direct kernel."""
+    slot_bytes = w * (itemsize + 4)
+    tile_rows = next((rb for rb in TILE_ROWS
+                      if STAGES * rb * slot_bytes <= STAGE_BUDGET), None)
+    if tile_rows is None:
+        blocks = max(1, -(-rows // DIRECT_BLOCK))
+        return EllPlan(False, rows, w, DIRECT_BLOCK, 0, blocks, 0, blocks, 0)
+    tiles = -(-rows // tile_rows)
+    smem = STAGES * tile_rows * slot_bytes
+    aligned = (cols_offset % BULK_ALIGN == 0 and vals_offset % BULK_ALIGN == 0)
+    # tile_rows is a multiple of 32, so a full tile's spans (tile_rows * w
+    # elements of 4 or 8 bytes) start and end on 16-byte boundaries.
+    bulk = rows // tile_rows if aligned else 0
+    grid = max(1, min(tiles, sms * max(1, int(occupancy(tile_rows, smem)))))
+    return EllPlan(True, rows, w, tile_rows, STAGES, tiles, bulk, grid, smem)
 
 
 def _checked(x: torch.Tensor, cols: torch.Tensor, vals: torch.Tensor):
@@ -46,6 +107,34 @@ def _checked(x: torch.Tensor, cols: torch.Tensor, vals: torch.Tensor):
         raise ValueError("operator too large for the kernel's int32 columns")
 
 
+_plans: dict = {}
+
+
+def _plan_for(lib, cols: torch.Tensor, vals: torch.Tensor) -> EllPlan:
+    """The launch plan of this call, cached by what it depends on."""
+    dev = vals.device
+    rows, w = cols.shape
+    key = (dev.index, rows, w, vals.dtype, cols.data_ptr() % BULK_ALIGN,
+           vals.data_ptr() % BULK_ALIGN)
+    p = _plans.get(key)
+    if p is None:
+        is_f32 = int(vals.dtype == torch.float32)
+
+        def occupancy(threads: int, smem: int) -> int:
+            out = ctypes.c_int(0)
+            with torch.cuda.device(dev):
+                _build.check(lib.ell_spmv_occupancy(is_f32, threads, smem,
+                                                    ctypes.byref(out)),
+                             "ell_spmv occupancy")
+            return out.value
+
+        p = _plans[key] = plan(
+            rows, w, vals.element_size(), cols.data_ptr(), vals.data_ptr(),
+            torch.cuda.get_device_properties(dev).multi_processor_count,
+            occupancy)
+    return p
+
+
 def ell_spmv(x: torch.Tensor, cols: torch.Tensor,
              vals: torch.Tensor) -> torch.Tensor:
     """y[r] = sum_s vals[r, s] * x[cols[r, s]], slots summed left to right."""
@@ -55,13 +144,21 @@ def ell_spmv(x: torch.Tensor, cols: torch.Tensor,
         raise ValueError(f"no ell_spmv for device {cols.device}")
     x = x.to(vals.dtype).contiguous()
     _checked(x, cols, vals)
-    rows, w = cols.shape
-    out = torch.empty(rows, dtype=vals.dtype, device=vals.device)
-    with torch.cuda.device(vals.device):
-        rc = _build.load("ell_spmv", _SIGS).ell_spmv_launch(
-            int(vals.dtype == torch.float32), x.data_ptr(), cols.data_ptr(),
-            vals.data_ptr(), out.data_ptr(), rows, w,
-            torch.cuda.current_stream(vals.device).cuda_stream)
+    lib = _build.load("ell_spmv", _SIGS)
+    return _launch(lib, _plan_for(lib, cols, vals), x, cols, vals)
+
+
+def _launch(lib, p: EllPlan, x: torch.Tensor, cols: torch.Tensor,
+            vals: torch.Tensor) -> torch.Tensor:
+    """One launch of plan ``p`` on checked CUDA tensors."""
+    dev = vals.device
+    out = torch.empty(p.rows, dtype=vals.dtype, device=dev)
+    with torch.cuda.device(dev):
+        rc = lib.ell_spmv_launch(
+            int(vals.dtype == torch.float32), int(p.staged),
+            x.data_ptr(), cols.data_ptr(), vals.data_ptr(), out.data_ptr(),
+            p.rows, p.w, p.tile_rows, p.stages, p.bulk_tiles, p.grid,
+            p.smem_bytes, torch.cuda.current_stream(dev).cuda_stream)
     _build.LAUNCHES["ell_spmv"] += 1
     _build.check(rc, "ell_spmv")
     return out

@@ -257,7 +257,7 @@ _ARGTYPES = [ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
              ctypes.c_int, ctypes.c_int, ctypes.c_double, ctypes.c_void_p,
              ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
 BLOCK = 256          # threads per block, fixed in csrc/fused_iter.cuh
-LMAX = 6             # deepest pipeline the kernel is instantiated for
+LMAX = 8             # deepest pipeline the kernel is instantiated for
 
 
 def _check(t: torch.Tensor, name: str, dtype, shape, device) -> None:

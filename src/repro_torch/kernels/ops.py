@@ -109,23 +109,35 @@ def decode_attention_stats(q, k, v, kv_len, block_s: int = 512):
     """Unnormalized ``(o, m, l)`` of one query token for the cross-shard
     split-KV merge: q (B, H, D), k/v (B, S, Hkv, D); o is (B, Hkv, G, D),
     m and l (B, Hkv, G, 1), all fp32.  ``block_s`` is the number of cache
-    positions one CUDA block reduces (the kernel's split of S) and, with
-    ``kv_len`` 0, sets the padded length reported in l.
+    positions one CUDA block reduces (the kernel's split of S) and sets the
+    padded length S_p (S rounded up to a multiple of ``block_s``) that the
+    edges below report.
 
-    With ``kv_len`` 0 the JAX wrapper, which pads S to a multiple of
-    ``block_s``, returns m = -1e30, o = the sum of v and l = the padded
-    length: l here is the padded length too.  ``kv_len`` past S raises
-    (the JAX wrapper would count its zero padding as valid positions)."""
-    kv_len = int(kv_len)
+    The JAX wrapper pads S to S_p with zero k/v and masks positions at or
+    past ``kv_len``; this wrapper gives its results at the edges:
+    * ``kv_len`` <= 0: no valid position; m = -1e30, o = the sum of v and
+      l = S_p (a negative ``kv_len`` counts as 0).
+    * ``kv_len`` > S: the kernel runs over all S positions, and the
+      e = min(kv_len, S_p) - S padding positions the JAX wrapper counts
+      as valid (score 0, value 0) are folded in: m' = max(m, 0),
+      l' = l exp(m - m') + e exp(-m'), o' = o exp(m - m')."""
     b, h, d = q.shape
-    hkv = k.shape[2]
+    s, hkv = k.shape[1], k.shape[2]
     if h % hkv:
         raise ValueError(f"{h} query heads do not group over {hkv} KV heads")
+    want = max(int(kv_len), 0)
     qg = q.reshape(b, hkv, h // hkv, d)
-    o, m, l = _da.decode_attention_stats(qg, k, v, kv_len, block_s)
-    if kv_len == 0:
-        s = k.shape[1]
-        l = l + (-(-s // block_s) * block_s - s)
+    o, m, l = _da.decode_attention_stats(qg, k, v, min(want, s), block_s)
+    padded = -(-s // block_s) * block_s
+    if want == 0:
+        l = l + (padded - s)
+    elif want > s and padded > s:
+        extra = min(want, padded) - s
+        m_new = torch.clamp_min(m, 0.0)
+        alpha = torch.exp(m - m_new)
+        o = o * alpha
+        l = l * alpha + extra * torch.exp(-m_new)
+        m = m_new
     return o, m, l
 
 

@@ -21,13 +21,18 @@ Tolerances:
   fp32 formula with other sum orders, rtol = atol = 2e-5.
 """
 
+import importlib.util
+
 import numpy as np
 import pytest
 import torch
 
 torch.set_num_threads(1)
 
-try:
+# A card's machine has no JAX and runs only the cuda tests; where JAX is
+# installed, the reference package is imported unguarded.
+HAVE_JAX = importlib.util.find_spec("jax") is not None
+if HAVE_JAX:
     import jax
     import jax.numpy as jnp
 
@@ -35,8 +40,6 @@ try:
     from repro.kernels import ops as jops
     from repro.kernels import ref as jref
     from repro.models import attention as jatt
-except ImportError:     # a card's machine without JAX runs the cuda tests
-    jax = None
 
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels import decode_attention as tda  # noqa: E402
@@ -53,7 +56,7 @@ ATT_TOL = 2e-4
 
 @pytest.fixture
 def with_jax():
-    if jax is None:
+    if not HAVE_JAX:
         pytest.skip("needs JAX, the reference")
 
 
@@ -234,18 +237,43 @@ def test_decode_attention_torch_matches_jnp(b, h, hkv, d, s, kv_len, with_jax):
                                atol=ATT_TOL)
 
 
-@pytest.mark.parametrize("case", ["kv_len_past_s", "kv_len_negative",
-                                  "heads_not_grouped", "meta_device"])
+@pytest.mark.parametrize("s,bs,kv_len", [
+    (300, 128, 301),          # S + 1: one zero padding position counts
+    (300, 128, 391),          # S_padded + 7: all 84 padding positions count
+    (300, 128, -1),           # negative: no valid position, as kv_len = 0
+    (256, 128, 300),          # S a multiple of block_s: nothing to fold
+])
+def test_decode_attention_kv_len_edges_match_jax_wrapper(s, bs, kv_len,
+                                                         with_jax):
+    """kv_len past S or below 0: the JAX wrapper pads S to a multiple of
+    block_s with zero k/v and counts the padding below kv_len as valid
+    positions (score 0, value 0), and masks everything for kv_len < 0; the
+    port folds the same positions into its statistics."""
+    rng = np.random.default_rng(s + kv_len)
+    b, h, hkv, d = 2, 4, 2, 32
+    q, k, v = (_normal(rng, sh) for sh in ((b, h, d), (b, s, hkv, d),
+                                           (b, s, hkv, d)))
+    tq, tk, tv = torch.tensor(q), torch.tensor(k), torch.tensor(v)
+    jq, jk, jv = jnp.asarray(q), jnp.asarray(k), jnp.asarray(v)
+    o, m, l = tops.decode_attention_stats(tq, tk, tv, kv_len, block_s=bs)
+    jo, jm, jl = jops.decode_attention_stats(jq, jk, jv, kv_len, block_s=bs)
+    np.testing.assert_allclose(m.numpy(), jm, rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(l.numpy(), jl, rtol=ATT_TOL, atol=ATT_TOL)
+    np.testing.assert_allclose(o.numpy(), jo, rtol=ATT_TOL, atol=ATT_TOL)
+    np.testing.assert_allclose((o / l).numpy(), np.asarray(jo / jl),
+                               rtol=ATT_TOL, atol=ATT_TOL)
+    out = tops.decode_attention(tq, tk, tv, kv_len, block_s=bs)
+    np.testing.assert_allclose(
+        out.numpy(), jops.decode_attention(jq, jk, jv, kv_len, block_s=bs),
+        rtol=ATT_TOL, atol=ATT_TOL)
+    assert torch.isfinite(out).all()
+
+
+@pytest.mark.parametrize("case", ["heads_not_grouped", "meta_device"])
 def test_entry_points_refuse(case):
     q = torch.zeros(1, 4, 16)
     k = torch.zeros(1, 8, 2, 16)
-    if case == "kv_len_past_s":
-        with pytest.raises(ValueError, match="kv_len"):
-            tops.decode_attention(q, k, k, 9)
-    elif case == "kv_len_negative":
-        with pytest.raises(ValueError, match="kv_len"):
-            tops.decode_attention_stats(q, k, k, -1)
-    elif case == "heads_not_grouped":
+    if case == "heads_not_grouped":
         with pytest.raises(ValueError, match="heads"):
             tops.decode_attention(torch.zeros(1, 3, 16), k, k, 4)
     else:
@@ -260,23 +288,100 @@ def test_entry_points_refuse(case):
                                        k.to(meta), k.to(meta), 4)
 
 
+def _row_pieces(p, head):
+    """What the kernel's items cover of a row whose first 16-byte boundary
+    is element ``head``, in item order (csrc/fused_dots.cu): item q covers
+    elements head + (q - 1) * vec .. + vec - 1 of those in [0, N), one
+    16-byte vector when all are in range.  Yields (first, count, "vector"
+    | "elements")."""
+    for q in range(p.items):
+        i0 = head + (q - 1) * p.vec
+        lo, hi = max(i0, 0), min(i0 + p.vec, p.n)
+        if lo < hi:
+            yield lo, hi - lo, ("vector" if (lo, hi) == (i0, i0 + p.vec)
+                                else "elements")
+
+
+@pytest.mark.parametrize("k,n", [(1, 1), (5, 4194304), (5, 1001),
+                                 (17, 4099), (20, 7)])
+@pytest.mark.parametrize("itemsize", [4, 8])
+def test_fused_dots_plan_covers_every_element_once(k, n, itemsize):
+    """The kernel's launch plan, for S in {1, 3, 8, 20} and aligned and
+    misaligned bases: every row in exactly one row chunk and every column
+    in one column chunk; the items cover each element of each row exactly
+    once; every vector piece of mat, and of vecs where the plan reads it in
+    vectors, starts on a 16-byte boundary; the grid is one wave."""
+    sms, per_sm = 132, 6
+    vec = 16 // itemsize
+    for s in (1, 3, 8, 20):
+        for mat_off, vecs_off in ((0, 0), (itemsize, 0), (0, itemsize),
+                                  (8, 8)):
+            p = tfd.plan(k, n, s, itemsize, mat_off, vecs_off, sms,
+                         lambda kc, sb, stage: per_sm)
+            assert p.vec == vec and 1 <= p.kc <= tfd.KC_MAX
+            assert p.gy * p.kc >= k > (p.gy - 1) * p.kc
+            assert p.sb in tfd.SB_SIZES and p.gz * p.sb >= s > \
+                (p.gz - 1) * p.sb
+            assert 1 <= p.grid and p.grid * p.gy * p.gz <= max(
+                sms * per_sm, p.gy * p.gz)
+            assert p.partials == k * s * p.grid
+            if s == 1 and p.uniform and k * n > 0:
+                assert p.vecs_vec == ((vecs_off - mat_off) % 16 == 0)
+            # The main shape (N = 2048^2) is checked by its plan fields:
+            # walking its 10^6 items here would take minutes.
+            for r in range(k if n <= 5000 else 0):
+                seen = np.zeros(n, np.int64)
+                h = (-(mat_off + r * n * itemsize) % 16) // itemsize
+                assert p.heads[r] == h
+                for lo, cnt, kind in _row_pieces(p, h):
+                    seen[lo:lo + cnt] += 1
+                    if kind == "vector":
+                        assert cnt == vec
+                        assert (mat_off + (r * n + lo) * itemsize) % 16 == 0
+                        if s == 1 and p.vecs_vec:
+                            assert (vecs_off + lo * itemsize) % 16 == 0
+                assert (seen == 1).all()
+            if n > 5000:
+                assert p.items == (n - 1) // vec + 2
+                assert p.uniform == (mat_off % 16 == 0 or n % vec == 0)
+            if s > 1 and p.vecs_vec:
+                assert s % vec == 0 and p.sb % vec == 0 and vecs_off % 16 == 0
+            # A warp's staged vecs block: 32 items of vec rows of 8 values,
+            # one contiguous aligned span starting at the items' first row.
+            assert p.stage_vecs == (s == 8 and p.uniform
+                                    and vecs_off % 16 == 0)
+            if p.stage_vecs:
+                assert p.gz == 1 and p.sb == 8
+                first = p.heads[0] - vec        # item 0's first vecs row
+                assert (vecs_off + first * 8 * itemsize) % 16 == 0
+            assert p.uniform == (len(set(p.heads)) == 1)
+
+
 @pytest.mark.cuda
 def test_fused_dots_on_card(cuda_device):
     rng = np.random.default_rng(11)
+    cases = [(5, 100003, 1), (5, 100003, 8), (11, 5000, 16), (3, 70000, 20),
+             (20, 3000, 2), (1, 4097, 1), (17, 4099, 1), (17, 4099, 8),
+             (5, 1001, 3), (1, 1, 1), (5, 1 << 20, 1), (5, 1 << 20, 8)]
     for dt in (torch.float64, torch.float32):
-        for k, n, s in ((5, 100003, 1), (5, 100003, 8), (11, 5000, 16),
-                        (3, 70000, 20), (20, 3000, 2)):
-            m = torch.tensor(rng.standard_normal((k, n)), dtype=dt,
-                             device=cuda_device)
-            vecs = torch.tensor(rng.standard_normal((n, s)), dtype=dt,
-                                device=cuda_device)
-            before = _build.LAUNCHES["fused_dots"]
-            got = tfd.fused_dots_mrhs(m, vecs)
-            assert _build.LAUNCHES["fused_dots"] == before + 1
-            assert torch.equal(got, tfd.fused_dots_mrhs(m, vecs))
-            _assert_dots(got.cpu().numpy(),
-                         tfd.fused_dots_plain(m, vecs).cpu().numpy(),
-                         m.cpu().numpy(), vecs.cpu().numpy())
+        for k, n, s in cases:
+            for off in (0, 1):   # 1: both bases one element off the grid
+                mbuf = torch.tensor(rng.standard_normal(k * n + off),
+                                    dtype=dt, device=cuda_device)
+                vbuf = torch.tensor(rng.standard_normal(n * s + off),
+                                    dtype=dt, device=cuda_device)
+                m = mbuf[off:].view(k, n)
+                vecs = vbuf[off:].view(n, s)
+                before = _build.LAUNCHES["fused_dots"]
+                got = tfd.fused_dots_mrhs(m, vecs)
+                assert _build.LAUNCHES["fused_dots"] == before + 1
+                assert torch.equal(got, tfd.fused_dots_mrhs(m, vecs))
+                _assert_dots(got.cpu().numpy(),
+                             tfd.fused_dots_plain(m, vecs).cpu().numpy(),
+                             m.cpu().numpy(), vecs.cpu().numpy())
+                if s == 1:
+                    one = tfd.fused_dots(m, vecs[:, 0])
+                    assert torch.equal(one, got[:, 0])
 
 
 @pytest.mark.cuda

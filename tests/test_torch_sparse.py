@@ -16,21 +16,28 @@ Tolerances:
 """
 
 import dataclasses
+import importlib.util
 
-import jax
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-jax.config.update("jax_enable_x64", True)
 torch.set_num_threads(1)
 
-from repro.configs import icesheet3d as jice  # noqa: E402
-from repro.configs.problems import build_operator as jbuild  # noqa: E402
-from repro.kernels import ops as jkops  # noqa: E402
-from repro.kernels import ref as jref  # noqa: E402
-from repro.linalg import sparse as jsp  # noqa: E402
+# A card's machine has no JAX and runs only the cuda tests; where JAX is
+# installed, the reference package is imported unguarded.
+HAVE_JAX = importlib.util.find_spec("jax") is not None
+if HAVE_JAX:
+    import jax
+    import jax.numpy as jnp
+
+    jax.config.update("jax_enable_x64", True)
+    from repro.configs import icesheet3d as jice
+    from repro.configs.problems import build_operator as jbuild
+    from repro.kernels import ops as jkops
+    from repro.kernels import ref as jref
+    from repro.linalg import sparse as jsp
+
 from repro_torch import convert  # noqa: E402
 from repro_torch.configs import icesheet3d as tice  # noqa: E402
 from repro_torch.configs.problems import build_operator as tbuild  # noqa: E402
@@ -42,6 +49,18 @@ from repro_torch.linalg import BlockJacobi, JacobiPrec  # noqa: E402
 from repro_torch.linalg import sparse as tsp  # noqa: E402
 
 RTOL = 1e-13
+
+
+def _launches(name):
+    from repro_torch.kernels import _build
+
+    return _build.LAUNCHES[name]
+
+
+@pytest.fixture
+def with_jax():
+    if not HAVE_JAX:
+        pytest.skip("needs JAX, the reference")
 
 
 @pytest.fixture
@@ -61,7 +80,7 @@ def _same_arrays(jop, top):
 
 
 @pytest.mark.parametrize("gen", ["mesh", "icesheet"])
-def test_generators_rcm_and_bounds_match_jax(gen):
+def test_generators_rcm_and_bounds_match_jax(gen, with_jax):
     if gen == "mesh":
         jop = jsp.random_fem_mesh(5, 300)
         top = tsp.random_fem_mesh(5, 300, device="cpu")
@@ -83,7 +102,7 @@ def test_generators_rcm_and_bounds_match_jax(gen):
     np.testing.assert_array_equal(tr.diag().numpy(), np.asarray(jr.diag()))
 
 
-def test_config_builds_the_jax_operator():
+def test_config_builds_the_jax_operator(with_jax):
     jop = jbuild(jice.smoke_config())
     top = tbuild(tice.smoke_config(), "cpu")
     assert isinstance(top, tsp.SparseOp) and top.n == 240
@@ -94,7 +113,7 @@ def test_config_builds_the_jax_operator():
         jice.smoke_config())
 
 
-def test_coo_and_dense_packing_match_jax():
+def test_coo_and_dense_packing_match_jax(with_jax):
     rng = np.random.default_rng(11)
     a = rng.standard_normal((9, 9)) * (rng.uniform(size=(9, 9)) < 0.3)
     a = a + a.T + 9 * np.eye(9)
@@ -109,7 +128,7 @@ def test_coo_and_dense_packing_match_jax():
         tsp.sparse_from_coo(3, [0, 5], [0, 1], [1.0, 2.0], device="cpu")
 
 
-def test_apply_matches_jax_and_kernel_route_is_plain_on_cpu():
+def test_apply_matches_jax_and_kernel_route_is_plain_on_cpu(with_jax):
     jop = jbuild(jice.smoke_config())
     top = tbuild(tice.smoke_config(), "cpu")
     x = np.random.default_rng(3).standard_normal(top.n)
@@ -125,7 +144,8 @@ def test_apply_matches_jax_and_kernel_route_is_plain_on_cpu():
 
 @pytest.mark.parametrize("r,w,nx", [(100, 7, 100), (37, 5, 60)])
 @pytest.mark.parametrize("dtype", ["float64", "float32"])
-def test_ell_spmv_ref_matches_jax_kernel_and_oracle(r, w, nx, dtype):
+def test_ell_spmv_ref_matches_jax_kernel_and_oracle(r, w, nx, dtype,
+                                                    with_jax):
     """``nx > r``: x longer than the row count (the distributed path's
     [own | halo] vector)."""
     rng = np.random.default_rng(r + w)
@@ -153,7 +173,7 @@ def test_ell_spmv_ref_matches_jax_kernel_and_oracle(r, w, nx, dtype):
         np.testing.assert_array_less(diff, bound + 1e-300)
 
 
-def test_convert_round_trips_sparse():
+def test_convert_round_trips_sparse(with_jax):
     jop = jbuild(jice.smoke_config())
     top = convert.operator("ell", device="cpu", cols=np.asarray(jop.cols),
                            vals=np.asarray(jop.vals), ordered=jop.ordered,
@@ -186,6 +206,68 @@ def test_refusals():
                      device="cpu")
 
 
+@pytest.mark.parametrize("rows", [1, 256, 4097])
+@pytest.mark.parametrize("w,itemsize", [(11, 8), (12, 4), (27, 8), (1, 8),
+                                        (400, 8)])
+def test_ell_plan_covers_every_row_once(rows, w, itemsize):
+    """The kernel's launch plan, for aligned and misaligned bases: walked
+    in the staged kernel's order (tile t = b, b + grid, ... for block b;
+    bulk tiles first), every row (and so every slot) lies in exactly one
+    tile of one block; a bulk-copied tile is full and its cols/vals spans
+    start and end on 16-byte boundaries; a misaligned base sends every tile
+    through ordinary loads; an operator too wide to stage runs the direct
+    kernel; the grid is one wave."""
+    sms, per_sm = 132, 3
+    for offsets in ((0, 0), (4, 8), (0, 8)):
+        p = tel.plan(rows, w, itemsize, offsets[0], offsets[1], sms,
+                     lambda threads, smem: per_sm)
+        _check_ell_plan(p, rows, w, itemsize, offsets, sms, per_sm)
+
+
+def _check_ell_plan(p, rows, w, itemsize, offsets, sms, per_sm):
+    fits = tel.STAGES * 32 * w * (itemsize + 4) <= tel.STAGE_BUDGET
+    assert p.staged == fits
+    seen = np.zeros(rows, np.int64)
+    if not p.staged:          # the direct kernel: a block's threads' rows
+        for blk in range(p.grid):
+            seen[blk * p.tile_rows:(blk + 1) * p.tile_rows] += 1
+        assert (seen == 1).all() and p.bulk_tiles == 0
+        return
+    for blk in range(p.grid):
+        for t in range(blk, p.tiles, p.grid):
+            r0 = t * p.tile_rows
+            nr = min(p.tile_rows, rows - r0)
+            seen[r0:r0 + nr] += 1
+            if t < p.bulk_tiles:
+                assert nr == p.tile_rows
+                for off, size in ((offsets[0], 4), (offsets[1], itemsize)):
+                    assert (off + r0 * w * size) % tel.BULK_ALIGN == 0
+                    assert (nr * w * size) % tel.BULK_ALIGN == 0
+    assert (seen == 1).all()
+    assert p.tile_rows % 32 == 0 and p.tiles == -(-rows // p.tile_rows)
+    assert p.smem_bytes == p.stages * p.tile_rows * w * (itemsize + 4)
+    assert p.smem_bytes <= tel.STAGE_BUDGET
+    assert 1 <= p.grid <= min(p.tiles, sms * per_sm)
+    aligned = offsets[0] % 16 == 0 and offsets[1] % 16 == 0
+    assert p.bulk_tiles == (rows // p.tile_rows if aligned else 0)
+
+
+def _ell_case(rng, rows, w, nx, dev, offset=0):
+    """A random (rows, w) ELL operator on ``dev`` with a few padded slots
+    (column 0, value 0), its cols/vals starting ``offset`` elements into
+    their buffers."""
+    cols = rng.integers(0, nx, (rows, w)).astype(np.int32)
+    vals = rng.standard_normal((rows, w))
+    pad = rng.random((rows, w)) < 0.2
+    pad[:, 0] = False
+    cols[pad], vals[pad] = 0, 0.0
+    cbuf = torch.zeros(rows * w + offset, dtype=torch.int32, device=dev)
+    vbuf = torch.zeros(rows * w + offset, dtype=torch.float64, device=dev)
+    cbuf[offset:] = torch.as_tensor(cols.ravel(), device=dev)
+    vbuf[offset:] = torch.as_tensor(vals.ravel(), device=dev)
+    return cbuf[offset:].view(rows, w), vbuf[offset:].view(rows, w)
+
+
 @pytest.mark.cuda
 def test_ell_kernels_bitwise_on_card(cuda_device):
     from repro_torch.kernels import fused_iter as tfi
@@ -199,8 +281,23 @@ def test_ell_kernels_bitwise_on_card(cuda_device):
         v = op.vals.to(dt)
         assert torch.equal(tel.ell_spmv(x, op.cols, v),
                            tel.ell_spmv_plain(x, op.cols, v))
+    # Every path of the kernel, reached by its input: bulk copies with a
+    # ragged or exact tile count, fewer rows than a tile, odd and even W, x
+    # longer than R; ordinary loads for bases off the 16-byte grid; and a W
+    # too wide to stage (the direct kernel).
+    for rows, w, off in ((1000, 11, 0), (1000, 11, 1), (512, 12, 0),
+                         (5, 11, 0), (4097, 27, 3), (100, 400, 0)):
+        cols, vals = _ell_case(rng, rows, w, rows + 13, cuda_device, off)
+        xx = torch.tensor(rng.standard_normal(rows + 13), device=cuda_device)
+        for dt in (torch.float64, torch.float32):
+            v = vals.to(dt) if dt != vals.dtype else vals
+            before = _launches("ell_spmv")
+            got = tel.ell_spmv(xx, cols, v)
+            assert _launches("ell_spmv") == before + 1
+            assert torch.equal(got, tel.ell_spmv_plain(xx, cols, v)), (
+                rows, w, off, dt)
     prec = JacobiPrec.from_operator(op)
-    for l in (1, 2, 3):
+    for l in (1, 2, 3, 8):
         for rec in ("ghysels", "stable"):
             layout = tfi.SlabLayout(l=l, RB=max(l + 1, 3), recurrence=rec)
             fiter = fused_iteration_factory(op, prec)(layout)
