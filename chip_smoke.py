@@ -46,7 +46,31 @@ Phases, each printed as one JSON line; every phase raises on failure:
    S = 524 288) within 2e-4 of their plain version, and the 32k cache split
    into 8 shards, merged by ``merge_decode_shards``, against the
    whole-cache decode; then the timings of the three kernels, with
-   ``fused_dots`` and its cuBLAS yardstick also by device time, in turns.
+   ``fused_dots`` and its cuBLAS yardstick also by device time, in turns;
+10. pipelines deeper than the compile-time kernels (l > 8): the
+   runtime-depth superkernel against the plain vector phase at l in {9, 12,
+   16} and at the deepest l whose shared memory fits, on laplace2d and
+   icesheet3d (with the check's peak device memory), the next depth refused
+   with both byte counts, a 100-update l = 9 solve, and times;
+11. decode attention with kv_len a tensor on the card, under
+   ``torch.cuda.set_sync_debug_mode("error")``, bit for bit against the
+   integer path (kv_len in {S, 30 001, 0, -1, S + 5, S_padded + 7, 12 345}
+   on the decode_32k cache and on a B = 2, S = 30 001 cache);
+12. the row partition of icesheet3d over 4 shards (``partition_spd``),
+   ``apply_local(use_kernel=True)`` over the in-process halo bitwise
+   against the global apply; the superkernel's halo-extended plug-ins at 4
+   shards of laplace2d, the icesheet3d-stencil grid and icesheet3d, l in
+   {1, 2, 3, 8}, against their plain shard expressions and, stacked,
+   against the whole-operator superkernel; their times;
+13. the ladder oracle (``LocalBackend(reduction="staged",
+   virtual_shards=4)``) on laplace2d: the fused full solve against the
+   monolithic fused solve of phase 3, and 300-update unfused solves through
+   the stencil kernel across stage counts (bitwise), against the
+   monolithic unfused solve (within 1e-10 of the initial norm) and with an
+   fp32 wire.
+
+Every kernel row of phases 8 and 9 carries its device time (profiler)
+beside its event time.
 
 It then prints the card's name and power limit, a ``kernels`` line, and
 as the last line ``{"ok": true, "device": {...}}``.  Without a card, or
@@ -67,6 +91,7 @@ PEAK_BYTES_PER_S = 3.35e12      # H100 SXM HBM3, NVIDIA data sheet
 PEAK_FP32_FLOPS = 67e12         # H100 SXM fp32 outside the tensor cores
 TOL = 1e-6
 PARTIAL_BOUND = 1e-13           # |partial - plain| <= bound * sum_j |m_kj u_j|
+ORACLE_HIST = 1e-10             # fp64 oracle vs monolithic history / norm0
 HISTORY_RTOL = 1e-8             # fused vs plain residual histories
 # fused_dots vs its plain version: both cast to fp32 and accumulate in fp32
 # in other orders (the kernel in per-thread chains and fixed trees, cuBLAS
@@ -104,17 +129,21 @@ def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
 
 
 def device_ms(fn, reps: int = 20, warmup: int = 3, tries: int = 3):
-    """The device time of one call of ``fn``: the summed duration of every
-    kernel (and copy) that ``reps`` calls run, from ``torch.profiler``, over
-    ``reps``.  Unlike ``cuda_ms`` it leaves out the host's time to enqueue.
-    The profiler can drop device events: a window in which it saw no device
-    time, or a count of device events that is not a whole number per call,
-    is taken again, up to ``tries`` times; None if none was whole."""
+    """The device time of one call of ``fn`` from ``torch.profiler`` over
+    ``reps`` calls: for each kernel (or copy) name, its mean duration times
+    the number of times one call runs it.  Unlike ``cuda_ms`` it leaves out
+    the host's time to enqueue.  The profiler can drop device events (on
+    the H100's machine it often misses the window's first kernel), so a
+    name's count may fall short of a whole number per call by up to a
+    tenth of ``reps``; a window with no device time, or a count further
+    off, is taken again, up to ``tries`` times; None (and the counts seen,
+    on stderr) if none was usable."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(warmup):
         fn()
+    seen = []
     for _ in range(tries):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
@@ -122,18 +151,24 @@ def device_ms(fn, reps: int = 20, warmup: int = 3, tries: int = 3):
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
-        total_us, events = 0.0, 0
+        per_call_us, usable, counts = 0.0, True, {}
         for e in prof.key_averages():
             if getattr(e, "device_type", None) != \
-                    torch.autograd.DeviceType.CUDA:
+                    torch.autograd.DeviceType.CUDA or not e.count:
                 continue
             t = getattr(e, "self_device_time_total", None)
             if t is None:
                 t = getattr(e, "self_cuda_time_total", 0.0)
-            total_us += t
-            events += e.count
-        if total_us > 0 and events % reps == 0:
-            return total_us / 1e3 / reps
+            k = round(e.count / reps)
+            usable = usable and k >= 1 and \
+                abs(e.count - k * reps) <= max(1, reps // 10)
+            per_call_us += t / e.count * max(k, 1)
+            counts[e.key[:48]] = e.count
+        if per_call_us > 0 and usable:
+            return per_call_us / 1e3
+        seen.append({"device_us_per_call": per_call_us, "events": counts})
+    print(json.dumps({"device_ms_not_whole": seen}), file=sys.stderr,
+          flush=True)
     return None
 
 
@@ -354,6 +389,7 @@ def entry_points_phase(dev, gen, n: int, k: int) -> tuple[dict, dict, dict]:
     x, y, z = (randn(n, dtype=torch.float32) for _ in range(3))
     timings["fused_axpy3"] = dict(
         ms=cuda_ms(lambda: fa.fused_axpy3(x, y, z, 0.5, -1.25, 2.0)),
+        device_ms=device_ms(lambda: fa.fused_axpy3(x, y, z, 0.5, -1.25, 2.0)),
         plain_ms=cuda_ms(lambda: fa.fused_axpy3_plain(x, y, z, 0.5, -1.25,
                                                       2.0)),
         library_ms=None, **bound_fields(4 * n * 4, 4 * n))
@@ -380,6 +416,8 @@ def entry_points_phase(dev, gen, n: int, k: int) -> tuple[dict, dict, dict]:
                 ms=cuda_ms(lambda: da.decode_attention_stats(qg, kc, vc,
                                                             kv_len),
                            reps=reps),
+                device_ms=device_ms(lambda: da.decode_attention_stats(
+                    qg, kc, vc, kv_len), reps=reps),
                 plain_ms=cuda_ms(lambda: da.decode_attention_stats_plain(
                     qg, kc, vc, kv_len), reps=reps),
                 library_ms=(cuda_ms(lambda: F.scaled_dot_product_attention(
@@ -390,6 +428,477 @@ def entry_points_phase(dev, gen, n: int, k: int) -> tuple[dict, dict, dict]:
         del q, kc, vc, qg, kt, vt, q4
         torch.cuda.empty_cache()
     return launches, err, timings
+
+
+def history_head_tail(h_a, h_b, norm0: float) -> tuple[float, float]:
+    """Relative differences of two residual histories where both hold an
+    entry: the largest over the first 10, and over all."""
+    import numpy as np
+
+    m = (h_a >= 0) & (h_b >= 0)
+    diff = np.abs(h_a[m] - h_b[m]) / norm0
+    return float(diff[:10].max()), float(diff.max())
+
+
+def timed(fn, nbytes: float, plain=None, plain_reps: int = 5) -> dict:
+    """Event time, device time (profiler) and, given, the plain version's
+    event time of one call, beside the bytes bound."""
+    out = {"ms": cuda_ms(fn), "device_ms": device_ms(fn),
+           "plain_ms": None if plain is None else cuda_ms(plain,
+                                                          reps=plain_reps),
+           "library_ms": None}
+    out.update(bound_fields(nbytes, 0.0))
+    return out
+
+
+def runtime_depth_phase(dev, randn, phase_scal, superkernel_vs_plain,
+                        lap_op, lap_prec, ice_op, ice_prec, lap_b,
+                        lap_sig_fn) -> tuple[dict, float, dict]:
+    """Pipelines deeper than the compile-time kernels (l > LMAX) through
+    the runtime-depth superkernel: rows bitwise against the plain vector
+    phase at l in {9, 12, 16} and at the deepest l whose shared memory
+    fits, on laplace2d (2048^2; its slab at that depth is 26.5 GB, and the
+    check's peak device memory is reported) and icesheet3d; the first
+    depth past it refused with both byte counts; a 100-update l = 9 solve (the path
+    whose launches are counted) against the unfused solve; and the times.
+    Returns (launches, max abs error, timings)."""
+    import torch
+
+    from repro_torch.kernels import _build, fused_iter as fi, ops as kops
+    from repro_torch.linalg import Stencil2D5
+
+    deepest = fi.deepest_runtime_l(fi.smem_optin("fused_iter_stencil2d5",
+                                                 dev))
+    cases, row_err, part_err = {}, 0.0, 0.0
+    for name, op in (("laplace2d", lap_op), ("icesheet3d", ice_op)):
+        torch.cuda.reset_peak_memory_stats(dev)
+        held = torch.cuda.memory_allocated(dev)
+        r, p_, c = superkernel_vs_plain([op], depths=(9, 12, 16, deepest))
+        tot = {"cases": c, "rows_max_abs_diff": r,
+               "partials_max_diff_over_abs_sum": p_,
+               "device_bytes_held_before": held,
+               "peak_device_bytes": torch.cuda.max_memory_allocated(dev)}
+        cases[name] = tot
+        row_err = max(row_err, tot["rows_max_abs_diff"])
+        part_err = max(part_err, tot["partials_max_diff_over_abs_sum"])
+    beyond = deepest + 1
+    layout = fi.SlabLayout(l=beyond, RB=beyond + 1)
+    small = Stencil2D5(64, 64)
+    fiter = kops.fused_iteration_factory(small)(layout)
+    try:
+        fiter(torch.zeros((layout.nv, small.n), dtype=torch.float64,
+                          device=dev),
+              torch.tensor(fi.host_idx(layout, 3 * beyond), dtype=torch.int32,
+                           device=dev), phase_scal(beyond))
+        refusal = None
+    except ValueError as e:
+        refusal = str(e)
+    need = str(fi.runtime_smem_bytes(beyond))
+    if refusal is None or need not in refusal:
+        raise AssertionError(f"l = {beyond} was not refused with its "
+                             f"{need} bytes of shared memory")
+
+    # The path: a short l = 9 solve through the runtime-depth kernel.
+    from repro_torch.parallel.backends import LocalBackend
+
+    be = LocalBackend()
+    kw = dict(l=9, tol=1e-30, maxit=100, max_restarts=50,
+              sigmas=lap_sig_fn(9), fused_iteration=True, unroll=16)
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    r_f = be.solve(lap_op, lap_b, prec=lap_prec, **kw)
+    torch.cuda.synchronize()
+    launches = dict(_build.LAUNCHES)
+    r_p = be.solve(lap_op, lap_b, prec=lap_prec,
+                   **dict(kw, fused_iteration=False))
+    h_f, h_p = r_f.res_history.cpu().numpy(), r_p.res_history.cpu().numpy()
+    m = int(min((h_f >= 0).sum(), (h_p >= 0).sum()))
+    hist_rel = float((abs(h_f[:m] - h_p[:m]) / abs(h_p[:m])).max())
+    counts = [[int(r.iters), int(r.restarts)] for r in (r_f, r_p)]
+    head, _ = history_head_tail(h_f, h_p, float(r_p.norm0))
+    solve_ok = bool(torch.isfinite(r_f.x).all()) and head < 1e-5
+    del r_f, r_p
+
+    timings = {}
+    for l in (9, 12, 16):
+        layout = fi.SlabLayout(l=l, RB=l + 1)
+        fiter = kops.fused_iteration_factory(lap_op, lap_prec)(layout)
+        host = fi.host_idx(layout, 2 * l + 3)
+        idx = torch.tensor(host, dtype=torch.int32, device=dev)
+        scal = phase_scal(l)
+        S = randn(layout.nv, lap_op.n) * 1e-3
+        timings[f"fused_iter_runtime_l{l}"] = timed(
+            lambda: fiter(S, idx, scal),
+            fi.min_bytes(layout, host, lap_op.n, has_prec=True,
+                         has_diag=False),
+            plain=lambda: fiter.plain(S, idx, scal), plain_reps=2)
+        del S
+        torch.cuda.empty_cache()
+    rec = {"phase": "runtime_depth_vs_plain", "lmax_compile_time": fi.LMAX,
+           "lmax_runtime": deepest,
+           "smem_bytes": {str(l): fi.runtime_smem_bytes(l)
+                          for l in (9, 12, 16, deepest)},
+           "refused_beyond": refusal, "cases": cases,
+           "partials_bound": PARTIAL_BOUND, "solve_l9": {
+               "launches": launches, "iters_restarts_fused_unfused": counts,
+               "history_head_max_vs_unfused": head, "head_bound": 1e-5,
+               "history_max_rel_diff_vs_unfused": hist_rel},
+           "timings": timings}
+    emit(rec)
+    if row_err != 0 or not part_err <= PARTIAL_BOUND:
+        raise AssertionError("runtime-depth superkernel differs from its "
+                             "plain version")
+    if not solve_ok or launches.get("fused_iter_runtime_l", 0) == 0:
+        raise AssertionError("l = 9 solve is not finite, its first residuals "
+                             "differ from the unfused solve's, or it never "
+                             "launched the runtime-depth kernel")
+    return launches, row_err, timings
+
+
+def decode_kv_len_phase(dev, gen) -> dict:
+    """Decode attention with kv_len a (1, 1) int32 tensor on the card,
+    under ``torch.cuda.set_sync_debug_mode("error")`` (a host sync raises),
+    against the integer path, bit for bit: the decode_32k cache (S =
+    32 768, a multiple of block_s) and a (B = 2, S = 30 001) cache whose
+    padded length is 30 208, so that kv_len past S folds in padding."""
+    import torch
+
+    from repro_torch.kernels import _build, ops as kops
+
+    h, hkv, d = DECODE_HEADS, DECODE_KV_HEADS, DECODE_HEAD_DIM
+    got_cases = {}
+    launches = 0
+    for b, s in ((16, 32768), (2, 30001)):
+        padded = -(-s // 512) * 512
+        q = torch.randn(b, h, d, generator=gen, device=dev)
+        kc = torch.randn(b, s, hkv, d, generator=gen, device=dev)
+        vc = torch.randn(b, s, hkv, d, generator=gen, device=dev)
+        lens = sorted({s, 30001, 0, -1, s + 5, padded + 7, 12345})
+        for kv_len in lens:
+            want = kops.decode_attention_stats(q, kc, vc, kv_len)
+            kt = torch.tensor([[kv_len]], dtype=torch.int32, device=dev)
+            torch.cuda.synchronize()
+            before = _build.LAUNCHES["decode_attention"]
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                got = kops.decode_attention_stats(q, kc, vc, kt)
+                out = kops.decode_attention(q, kc, vc, kt)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            launches += _build.LAUNCHES["decode_attention"] - before
+            same = all(bool(torch.equal(g, w)) for g, w in zip(got, want))
+            same = same and bool(torch.equal(
+                out, kops.decode_attention(q, kc, vc, kv_len)))
+            got_cases[f"b{b}_s{s}_kv{kv_len}"] = {
+                "same_bits_as_int": same,
+                "max_abs_diff": max(float((g - w).abs().max())
+                                    for g, w in zip(got, want))}
+            if not same:
+                raise AssertionError(f"device kv_len {kv_len} (S = {s}) "
+                                     "differs from the integer path")
+        del q, kc, vc
+        torch.cuda.empty_cache()
+    emit({"phase": "decode_kv_len_on_device", "sync_debug_mode": "error",
+          "block_s": 512, "cases": got_cases,
+          "launches_under_sync_check": launches})
+    return got_cases
+
+
+N_SHARDS = 4
+
+
+def partition_phase(dev, iop) -> tuple[object, dict]:
+    """The row partition of icesheet3d (500 000 nodes, RCM-ordered) over 4
+    shards, and the shard-level SpMV over the in-process halo through the
+    ELL kernel, bitwise against the ordered operator's global apply."""
+    import torch
+
+    from repro_torch.kernels import _build
+    from repro_torch.linalg.partition import apply_local, partition_spd
+
+    t0 = time.perf_counter()
+    plan = partition_spd(iop, N_SHARDS)
+    setup_s = time.perf_counter() - t0
+    x = torch.randn(iop.n, dtype=torch.float64, device=dev)
+    y_global = iop.apply(x)
+    args = (plan.cols, plan.vals, plan.send_up, plan.send_dn)
+    torch.cuda.synchronize()
+    before = _build.LAUNCHES["ell_spmv"]
+    y = apply_local(x.reshape(N_SHARDS, plan.nxl), *args, use_kernel=True)
+    torch.cuda.synchronize()
+    launched = _build.LAUNCHES["ell_spmv"] - before
+    y_plain = apply_local(x.reshape(N_SHARDS, plan.nxl), *args)
+    rec = {"phase": "partition_vs_plain", "problem": "icesheet3d",
+           "n": iop.n, "n_shards": N_SHARDS, "nxl": plan.nxl,
+           "hops": plan.hops, "max_send": plan.max_send, "ext": plan.ext,
+           "band": plan.band, "identity_perm": plan.identity_perm,
+           "host_setup_s": setup_s, "ell_spmv_launches": launched,
+           "bitwise_vs_global_apply": bool(torch.equal(y.reshape(-1),
+                                                       y_global)),
+           "plain_bitwise_vs_global_apply": bool(torch.equal(
+               y_plain.reshape(-1), y_global))}
+    emit(rec)
+    if not (rec["bitwise_vs_global_apply"]
+            and rec["plain_bitwise_vs_global_apply"]) or launched == 0:
+        raise AssertionError("partitioned apply differs from the global "
+                             "apply or never launched the ELL kernel")
+    return plan, rec
+
+
+def shard_plugins_phase(dev, randn, phase_scal, operators: dict,
+                        plan) -> tuple[dict, float, dict]:
+    """The superkernel's halo-extended plug-ins at 4 shards of laplace2d
+    (2048^2), the icesheet3d-stencil grid (256 x 200 x 152) and icesheet3d
+    (ELL, through ``plan``), l in {1, 2, 3, 8}, both recurrences, Jacobi
+    and identity, early and late cycle positions.  Each shard's kernel
+    against its plain shard expression (rows bitwise, partials within
+    PARTIAL_BOUND of sum |m u|); the stacked rows against the
+    whole-operator superkernel, bitwise; the shards' partials through
+    ``ordered_reduce`` against the whole-operator partials.  Then each
+    halo kernel's time beside the single-device plug-in's, at l = 2.
+    Returns (launches, max abs error, timings)."""
+    import torch
+
+    from repro_torch.core.types import dot_block_rows
+    from repro_torch.kernels import _build, fused_iter as fi, ops as kops
+    from repro_torch.kernels import ref
+    from repro_torch.linalg import JacobiPrec, SparseOp
+    from repro_torch.linalg.partition import halo_exchange
+    from repro_torch.parallel.distributed import (fused_spmv_local,
+                                                  halo_first_dim)
+    from repro_torch.parallel.reduction import ordered_reduce
+
+    p = N_SHARDS
+
+    def shard_fiters(op, layout, inv_diag, S, idx):
+        """(fiter, plain preconditioner) of each shard, each fed its row
+        of the in-process halo of the ring-top rows."""
+        nl = op.n // p
+        pos = fi.idx_layout(layout.l)["z_top"]
+        zt = S.index_select(0, idx[pos:pos + 1])[0].reshape(p, nl)
+        if isinstance(op, SparseOp):
+            ext = halo_exchange(zt, plan.send_up, plan.send_dn)
+            locs = [{f: getattr(plan, f)[s] for f in
+                     ("cols", "vals", "send_up", "send_dn")}
+                    for s in range(p)]
+        else:
+            ext = halo_first_dim(zt, op.n // op.nx)
+            locs = [{} for _ in range(p)]
+        out = []
+        for s in range(p):
+            spmv = fused_spmv_local(op, locs[s], p, lambda z, s=s: ext[s])
+            inv = None if inv_diag is None else \
+                inv_diag[s * nl:(s + 1) * nl].contiguous()
+            pfun = (lambda v: v) if inv is None else \
+                (lambda v, inv=inv: inv * v)
+            out.append((fi.build_fused_iteration(layout, spmv, inv), pfun))
+        return out
+
+    def plain_phase(S, idx, scal, apply_a, pfun, layout):
+        """(rows, partials, sum |m u|) of the plain vector phase."""
+        rows, mat, u = ref.fused_iter_unfused(S, idx, scal, apply_a, pfun,
+                                              layout)
+        return rows, dot_block_rows(mat, u), \
+            (mat.abs() * u.abs()[None]).sum(dim=1)
+
+    summary, err = {}, 0.0
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    whole_launches = 0
+    for name, op in operators.items():
+        nl = op.n // p
+        rows_err = part_err = red_err = 0.0
+        stack_same, cases = True, 0
+        for l in (1, 2, 3, 8):
+            for rec in ("ghysels", "stable"):
+                for jac in (True, False):
+                    prec = JacobiPrec.from_operator(op) if jac else None
+                    inv = None if prec is None else prec.inv_diag
+                    layout = fi.SlabLayout(l=l, RB=max(l + 1, 3),
+                                           recurrence=rec)
+                    for i in sorted({0, l, 2 * l + 3}):
+                        S = randn(layout.nv, op.n)
+                        idx = torch.tensor(fi.host_idx(layout, i),
+                                           dtype=torch.int32, device=dev)
+                        scal = phase_scal(l)
+                        rows, parts = [], []
+                        for s, (f, pfun) in enumerate(
+                                shard_fiters(op, layout, inv, S, idx)):
+                            S_s = S[:, s * nl:(s + 1) * nl].contiguous()
+                            S_p, d_p, scale = plain_phase(
+                                S_s, idx, scal, f.spmv.expr, pfun, layout)
+                            S_k, d_k = f(S_s, idx, scal)
+                            rows_err = max(rows_err, float(
+                                (S_k - S_p).abs().max()))
+                            part_err = max(part_err, float(
+                                ((d_k - d_p).abs() / scale).max()))
+                            rows.append(S_k)
+                            parts.append(d_k)
+                            del S_p
+                        _, _, scale = plain_phase(
+                            S, idx, scal, op.apply,
+                            (lambda v: v) if prec is None else prec.apply,
+                            layout)
+                        whole = kops.fused_iteration_factory(op, prec)(layout)
+                        S_w, d_w = whole(S, idx, scal)
+                        whole_launches += 1
+                        stack_same = stack_same and bool(
+                            torch.equal(torch.cat(rows, dim=1), S_w))
+                        total = ordered_reduce(torch.stack(parts),
+                                               torch.float64, False)
+                        red_err = max(red_err, float(
+                            ((total - d_w).abs() / scale).max()))
+                        cases += 1
+                        del S, S_w, rows, parts
+            torch.cuda.empty_cache()
+        summary[name] = {"own_rows": nl, "cases": cases,
+                         "rows_max_abs_diff": rows_err,
+                         "partials_max_diff_over_abs_sum": part_err,
+                         "stacked_rows_bitwise_vs_whole": stack_same,
+                         "ordered_reduce_vs_whole_max_diff_over_abs_sum":
+                             red_err}
+        err = max(err, rows_err)
+        if rows_err != 0 or not stack_same or not part_err <= PARTIAL_BOUND \
+                or not red_err <= PARTIAL_BOUND:
+            emit({"phase": "shard_plugins_vs_plain", "failed": name,
+                  "plugins": summary})
+            raise AssertionError(f"halo plug-in of {name} differs from its "
+                                 "plain version or from the whole operator")
+    launches = {k: v for k, v in _build.LAUNCHES.items()
+                if k in ("fused_iter_halo", "fused_iter_ell_halo")}
+
+    timings = {}
+    layout = fi.SlabLayout(l=2, RB=3)
+    host = fi.host_idx(layout, 2 * layout.l + 3)
+    idx = torch.tensor(host, dtype=torch.int32, device=dev)
+    scal = phase_scal(2)
+    for name, op in operators.items():
+        prec = JacobiPrec.from_operator(op)
+        nl = op.n // p
+        S = randn(layout.nv, op.n) * 1e-3
+        f = shard_fiters(op, layout, prec.inv_diag, S, idx)[1][0]
+        S_s = S[:, nl:2 * nl].contiguous()
+        timings[f"halo_{name}"] = timed(
+            lambda: f(S_s, idx, scal),
+            fi.min_bytes(layout, host, nl, has_prec=True, has_diag=False,
+                         operand_bytes=f.spmv.operand_bytes),
+            plain=lambda: f.plain(S_s, idx, scal))
+        whole = kops.fused_iteration_factory(op, prec)(layout)
+        timings[f"single_device_{name}"] = timed(
+            lambda: whole(S, idx, scal),
+            fi.min_bytes(layout, host, op.n, has_prec=True, has_diag=False,
+                         operand_bytes=whole.spmv.operand_bytes))
+        del S, S_s
+        torch.cuda.empty_cache()
+    emit({"phase": "shard_plugins_vs_plain", "n_shards": p,
+          "depths": [1, 2, 3, 8], "ell_plan": {
+              "nxl": plan.nxl, "hops": plan.hops, "max_send": plan.max_send,
+              "ext": plan.ext},
+          "plugins": summary, "partials_bound": PARTIAL_BOUND,
+          "launches": launches, "whole_operator_check_launches":
+              whole_launches, "timings": timings})
+    return launches, err, timings
+
+
+def oracle_phase(op, prec, b, sig, solve_kw, main_res) -> dict:
+    """The ladder oracle on laplace2d 2048^2, p(2)-CG, Jacobi:
+    ``LocalBackend(reduction="staged", virtual_shards=4)``.  The fused
+    full solve (one superkernel partial filed in slot 0, the other slots
+    exact zeros) against the monolithic fused solve ``main_res`` (history
+    head within ORACLE_HIST of norm0; the whole history, ~11 800 updates
+    whose restarts round in another grouping, within 5e-2); then
+    300-update unfused solves through the stencil kernel
+    (``use_kernel=True``): fp64 wire at 1 and 3 stages (bitwise), an fp32
+    wire (bounded tail), and the monolithic unfused solve's time."""
+    import dataclasses as dc
+
+    import torch
+
+    from repro_torch.kernels import _build
+    from repro_torch.parallel.backends import LocalBackend
+
+    def run(be, op_, kw):
+        torch.cuda.synchronize()
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        r = be.solve(op_, b, prec=prec, **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        return r, wall, dict(_build.LAUNCHES)
+
+    staged = LocalBackend(reduction="staged", virtual_shards=N_SHARDS)
+    r, wall, launches = run(staged, op, solve_kw)
+    n_iter = launches.get("fused_iter", 0)
+    true_rel = float(torch.linalg.norm(b - op.apply(r.x))
+                     / torch.linalg.norm(b))
+    fused = {"converged": bool(r.converged), "iters": int(r.iters),
+             "restarts": int(r.restarts), "vector_phases": n_iter,
+             "wall_s": wall, "ms_per_iter": 1e3 * wall / max(n_iter, 1),
+             "true_rel_residual": true_rel, "launches": launches,
+             "bitwise_vs_monolithic_fused": bool(
+                 torch.equal(r.x, main_res.x)
+                 and torch.equal(r.res_history, main_res.res_history))}
+    fused["history_vs_monolithic_fused"] = dict(zip(
+        ("head_max", "max"), history_head_tail(
+            r.res_history.cpu().numpy(), main_res.res_history.cpu().numpy(),
+            float(main_res.norm0))))
+    if not fused["bitwise_vs_monolithic_fused"]:
+        fused["why_not_bitwise"] = (
+            "each iteration's superkernel partial only gains P-1 exact "
+            "zeros, but the blocking reductions of the cycle start (the "
+            "initial norm, each restart's block) go through start(), which "
+            "the oracle sums as 4 slice partials in rank order: another "
+            "grouping than the monolithic row sum")
+    del r
+    kop = dc.replace(op, use_kernel=True)
+    kw = dict(solve_kw, maxit=300, tol=1e-30, fused_iteration=False)
+    unfused = {}
+    for key, be in (
+            ("monolithic", LocalBackend()),
+            ("fp64_stages1", LocalBackend(reduction="staged",
+                                          reduction_stages=1,
+                                          virtual_shards=N_SHARDS)),
+            ("fp64_stages3", LocalBackend(reduction="staged",
+                                          reduction_stages=3,
+                                          virtual_shards=N_SHARDS)),
+            ("fp32_stages2", LocalBackend(
+                reduction="staged", reduction_stages=2,
+                reduction_dtype=torch.float32, virtual_shards=N_SHARDS))):
+        r, wall, launches = run(be, kop, kw)
+        unfused[key] = {"res": r, "iters": int(r.iters),
+                        "restarts": int(r.restarts), "wall_s": wall,
+                        "ms_per_iter": 1e3 * wall / max(int(r.iters), 1),
+                        "launches": launches}
+    h = {k: v.pop("res") for k, v in unfused.items()}
+    across = bool(torch.equal(h["fp64_stages1"].res_history,
+                              h["fp64_stages3"].res_history)
+                  and torch.equal(h["fp64_stages1"].x, h["fp64_stages3"].x))
+    head, tail = history_head_tail(h["fp32_stages2"].res_history.cpu().numpy(),
+                                   h["fp64_stages1"].res_history.cpu().numpy(),
+                                   float(h["fp64_stages1"].norm0))
+    head_m, tail_m = history_head_tail(
+        h["fp64_stages1"].res_history.cpu().numpy(),
+        h["monolithic"].res_history.cpu().numpy(),
+        float(h["monolithic"].norm0))
+    rec = {"phase": "oracle_solve", "problem": "laplace2d", "n": op.n,
+           "virtual_shards": N_SHARDS, "l": solve_kw["l"], "prec": "jacobi",
+           "fused": fused, "unfused_use_kernel": unfused,
+           "unfused_fp64_bitwise_across_stage_counts": across,
+           "unfused_fp32_wire_vs_fp64": {"head_max": head, "max": tail},
+           "unfused_oracle_vs_monolithic": {"head_max": head_m,
+                                            "max": tail_m},
+           "bounds": {"head": 1e-5, "all": 5e-2,
+                      "fp64_vs_monolithic": ORACLE_HIST}}
+    emit(rec)
+    fh = fused["history_vs_monolithic_fused"]
+    if not (fused["converged"] and true_rel < 10 * TOL and across
+            and head < 1e-5 and tail < 5e-2 and n_iter > 0
+            and fh["head_max"] <= ORACLE_HIST and fh["max"] < 5e-2
+            and head_m <= ORACLE_HIST and tail_m <= ORACLE_HIST
+            and all(u["launches"].get("stencil2d5", 0) > 0
+                    for u in unfused.values())):
+        raise AssertionError("ladder oracle solve failed its checks")
+    return rec
 
 
 def main() -> int:
@@ -465,8 +974,13 @@ def main() -> int:
                                      * u_new.abs()[None, :]).sum(dim=1)
                             S_k, d_k = fiter(S, idx, scal)
                             torch.cuda.synchronize()
-                            row_err = max(row_err,
-                                          float((S_k - S_p).abs().max()))
+                            # in row chunks: at l = 27 on 2048^2 a whole
+                            # difference slab (24.7 GiB) does not fit
+                            # beside S and S_p
+                            for r0 in range(0, layout.nv, 8):
+                                row_err = max(row_err, float(
+                                    (S_k[r0:r0 + 8] - S_p[r0:r0 + 8])
+                                    .abs().max()))
                             part_err = max(part_err, float(
                                 ((d_k - d_p).abs() / scale).max()))
                             cases += 1
@@ -830,6 +1344,7 @@ def main() -> int:
     n2 = g2.numel()
     timings["stencil2d5"] = {
         "ms": cuda_ms(lambda: stencil_spmv.stencil2d5(g2)),
+        "device_ms": device_ms(lambda: stencil_spmv.stencil2d5(g2)),
         "plain_ms": cuda_ms(lambda: stencil_spmv.stencil2d5_plain(g2)),
         "library_ms": cuda_ms(lambda: torch.nn.functional.conv2d(
             g2[None, None], w2, padding=1)),
@@ -843,6 +1358,7 @@ def main() -> int:
     n3 = g3.numel()
     timings["stencil3d7"] = {
         "ms": cuda_ms(lambda: stencil_spmv.stencil3d7(g3, ice.eps_z)),
+        "device_ms": device_ms(lambda: stencil_spmv.stencil3d7(g3, ice.eps_z)),
         "plain_ms": cuda_ms(
             lambda: stencil_spmv.stencil3d7_plain(g3, ice.eps_z)),
         "library_ms": cuda_ms(lambda: torch.nn.functional.conv3d(
@@ -862,6 +1378,7 @@ def main() -> int:
     S = randn(layout.nv, op.n) * 1e-3
     timings["fused_iter"] = {
         "ms": cuda_ms(lambda: fiter(S, idx, scal)),
+        "device_ms": device_ms(lambda: fiter(S, idx, scal)),
         "plain_ms": cuda_ms(lambda: fiter.plain(S, idx, scal), reps=5),
         "library_ms": None,
         "bytes": fi.min_bytes(layout, host, op.n, has_prec=True,
@@ -903,6 +1420,7 @@ def main() -> int:
     S = randn(layout.nv, iop.n) * 1e-3
     timings["fused_iter_ell"] = {
         "ms": cuda_ms(lambda: fiter(S, idx, scal)),
+        "device_ms": device_ms(lambda: fiter(S, idx, scal)),
         "plain_ms": cuda_ms(lambda: fiter.plain(S, idx, scal), reps=5),
         "library_ms": None,
         "bytes": fi.min_bytes(layout, host, iop.n, has_prec=True,
@@ -929,10 +1447,44 @@ def main() -> int:
               k: v for k, v in ep_err.items() if k.startswith("sdpa")},
           "seconds": time.perf_counter() - t0})
 
+    # ---- 10. pipelines deeper than the compile-time kernels -------------
+    rt_launches, err["fused_iter_runtime_l"], rt_timings = runtime_depth_phase(
+        dev, randn, phase_scal, superkernel_vs_plain, op, prec, iop, iprec,
+        b, lambda l: shifts_for_operator(op, l, prec=prec))
+    timings["fused_iter_runtime_l"] = rt_timings["fused_iter_runtime_l9"]
+
+    # ---- 11. decode attention with kv_len on the device -----------------
+    decode_kv_len_phase(dev, gen)
+
+    # ---- 12. the row partition and the halo plug-ins (4 virtual shards) --
+    plan, _ = partition_phase(dev, iop)
+    halo_launches, halo_err, halo_timings = shard_plugins_phase(
+        dev, randn, phase_scal, {
+            "laplace2d": Stencil2D5(lap.nx, lap.ny),
+            "icesheet3d-stencil": Stencil3D7(ice.nx, ice.ny, ice.nz,
+                                             eps_z=ice.eps_z),
+            "icesheet3d": iop}, plan)
+    err["fused_iter_halo"] = err["fused_iter_ell_halo"] = halo_err
+    timings["fused_iter_halo"] = halo_timings["halo_laplace2d"]
+    timings["fused_iter_ell_halo"] = halo_timings["halo_icesheet3d"]
+    del plan
+
+    # ---- 13. the ladder oracle ------------------------------------------
+    oracle_phase(op, prec, b, sig, solve_kw, res)
+
     # ---- contract lines --------------------------------------------------
     src_dir = "src/repro_torch/kernels/csrc/"
     kernels = []
     for name, source, replaces, launches in [
+        ("fused_iter_runtime_l", src_dir + "fused_iter.cuh",
+         "src/repro/kernels/fused_iter.py:262",
+         rt_launches.get("fused_iter_runtime_l", 0)),
+        ("fused_iter_halo", src_dir + "fused_iter.cuh",
+         "src/repro/kernels/fused_iter.py:199",
+         halo_launches.get("fused_iter_halo", 0)),
+        ("fused_iter_ell_halo", src_dir + "fused_iter.cuh",
+         "src/repro/kernels/fused_iter.py:229",
+         halo_launches.get("fused_iter_ell_halo", 0)),
         ("fused_iter", src_dir + "fused_iter.cuh",
          "src/repro/kernels/fused_iter.py:262",
          main_launches.get("fused_iter", 0)),

@@ -10,7 +10,9 @@ packages solve the identical system from the identical shifts:
   :func:`operator_fields` for the way back);
 * ``JacobiPrec.inv_diag`` (:func:`jacobi`);
 * Chebyshev ``sigmas`` (:func:`sigmas`);
-* a vector-phase ``(S, idx, scal)`` triple (:func:`vector_phase`).
+* a vector-phase ``(S, idx, scal)`` triple (:func:`vector_phase`);
+* a ``PartitionPlan``'s fields (:func:`partition_plan`), so both packages
+  apply one plan.
 """
 
 from __future__ import annotations
@@ -21,6 +23,7 @@ import torch
 from repro_torch.device import as_tensor, resolve_device
 from repro_torch.linalg.operators import (DenseSPD, DiagonalOp, Stencil2D5,
                                           Stencil3D7, Stencil3D27)
+from repro_torch.linalg.partition import PartitionPlan
 from repro_torch.linalg.preconditioners import JacobiPrec
 from repro_torch.linalg.sparse import SparseOp
 
@@ -99,3 +102,28 @@ def vector_phase(S, idx, scal, device=None):
     return (as_tensor(np.asarray(S), device),
             as_tensor(np.asarray(idx), device, torch.int32),
             as_tensor(np.asarray(scal), device))
+
+
+PLAN_FIELDS = ("n_shards", "n", "nxl", "hops", "max_send", "cols", "vals",
+               "send_up", "send_dn", "perm", "band")
+
+
+def partition_plan(device=None, **fields) -> PartitionPlan:
+    """A port ``PartitionPlan`` from the fields of a JAX one (integers, and
+    numpy arrays for ``cols``/``vals``/``send_up``/``send_dn``/``perm``):
+    cols and the send sets as int32, vals keeping their dtype, all on
+    ``device``; ``perm`` stays an int64 numpy array."""
+    dev = resolve_device(device)
+
+    def t(name, dtype=None):
+        a = torch.from_numpy(np.array(fields[name]))
+        return a.to(device=dev, dtype=dtype)
+
+    return PartitionPlan(
+        n_shards=int(fields["n_shards"]), n=int(fields["n"]),
+        nxl=int(fields["nxl"]), hops=int(fields["hops"]),
+        max_send=int(fields["max_send"]), cols=t("cols", torch.int32),
+        vals=t("vals"), send_up=t("send_up", torch.int32),
+        send_dn=t("send_dn", torch.int32),
+        perm=np.asarray(fields["perm"], dtype=np.int64),
+        band=int(fields["band"]))

@@ -8,7 +8,7 @@ def _not_ported(name: str):
     def solve(ops, b, kw):
         raise NotImplementedError(
             f"method {name!r} is not ported yet (ROADMAP.md, queue 1 "
-            "item 2: classic CG and Ghysels p-CG)")
+            "item 3: classic CG and Ghysels p-CG)")
     return solve
 
 

@@ -40,7 +40,7 @@ from typing import Callable, NamedTuple
 import torch
 
 from repro_torch.core.types import SolveResult, SolverOps, dot1
-from repro_torch.device import as_tensor
+from repro_torch.device import as_rhs, as_tensor
 from repro_torch.kernels.fused_iter import (SlabLayout, host_idx, idx_layout,
                                             scal_layout)
 from repro_torch.kernels.ref import fused_iter_unfused
@@ -104,11 +104,11 @@ def build(
     if telemetry_cap:
         raise NotImplementedError(
             "telemetry_cap > 0 is not ported yet (ROADMAP.md, queue 1 "
-            "item 7)")
+            "item 6)")
     if governor is not None:
         raise NotImplementedError(
             "the stability governor is not ported yet (ROADMAP.md, queue 1 "
-            "item 7)")
+            "item 6)")
     if not (replace_every == 0 or replace_every > l):
         raise ValueError(
             "residual replacement must be rarer than the pipeline refill")
@@ -430,16 +430,17 @@ def solve(
     """Solve A x = b with p(l)-CG.
 
     ``b`` as a tensor keeps its device; as an array it goes to ``device``
-    (default ``cuda``).  ``unroll`` is the number of iterations between
+    (default ``cuda``).  A floating ``b`` keeps its dtype, which is the
+    solve's (the fused superkernel takes fp64 only).  ``unroll`` is the number of iterations between
     host checks of the loop condition (one host synchronisation each);
     the result is bitwise the same for every ``unroll``."""
     if checkpoint is not None and getattr(checkpoint, "armed", True):
         raise NotImplementedError(
             "checkpointed solves are not ported yet (ROADMAP.md, queue 1 "
-            "item 7)")
+            "item 6)")
     if unroll < 1:
         raise ValueError("unroll must be >= 1")
-    b = as_tensor(b, device)
+    b = as_rhs(b, device)
     prog = build(ops, b, l, tol=tol, maxit=maxit, sigmas=sigmas,
                  max_restarts=max_restarts, replace_every=replace_every,
                  fused_iteration=fused_iteration, telemetry_cap=telemetry_cap,

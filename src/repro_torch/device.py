@@ -27,3 +27,14 @@ def as_tensor(x, device=None, dtype=torch.float64) -> torch.Tensor:
         return x.to(device=dev, dtype=dtype)
     return torch.tensor(np.asarray(x), dtype=dtype,
                            device=resolve_device(device))
+
+
+def as_rhs(b, device=None) -> torch.Tensor:
+    """A solver's right-hand side as a tensor: a floating tensor or array
+    keeps its dtype (an fp32 ``b`` runs an fp32 solve, as in the JAX
+    package), anything else becomes fp64; placed as :func:`as_tensor`
+    places it."""
+    dtype = b.dtype if isinstance(b, torch.Tensor) else \
+        torch.from_numpy(np.zeros(0, np.asarray(b).dtype)).dtype
+    return as_tensor(b, device, dtype if dtype.is_floating_point
+                     else torch.float64)

@@ -33,6 +33,9 @@ SOURCES = (
     "fused_iter_stencil3d27.cu",
     "fused_iter_diagonal.cu",
     "fused_iter_ell.cu",
+    "fused_iter_stencil2d5_halo.cu",
+    "fused_iter_stencil3d7_halo.cu",
+    "fused_iter_ell_halo.cu",
     "stencil_spmv.cu",
     "ell_spmv.cu",
     "fused_dots.cu",
@@ -115,15 +118,18 @@ def build_all() -> str:
 
 def load(name: str, signatures: dict[str, list]) -> ctypes.CDLL:
     """The built library ``csrc/<name>.cu`` with ``argtypes`` set from
-    ``signatures`` (every C entry returns ``cudaError_t`` as an int)."""
+    ``signatures`` (every C entry returns ``cudaError_t`` as an int).
+    Entries are typed on every call, so a library first loaded for one of
+    its entries has the others typed when they are asked for."""
     lib = _libs.get(name)
     if lib is None:
         lib = ctypes.CDLL(os.path.join(build_all(), name + ".so"))
-        for fn, argtypes in signatures.items():
-            f = getattr(lib, fn)
+        _libs[name] = lib
+    for fn, argtypes in signatures.items():
+        f = getattr(lib, fn)
+        if f.argtypes != argtypes:
             f.argtypes = argtypes
             f.restype = ctypes.c_int
-        _libs[name] = lib
     return lib
 
 

@@ -28,6 +28,13 @@
 // 132 SMs.  Keys at or past kv_len are not read: their weight is exactly
 // 0 once any key is valid.  With kv_len = 0 every key is read, masked and
 // weighs exp(0) = 1, as in the Pallas kernel (m = -1e30, l = S, o = sum v).
+//
+// kv_len on the device: when `kv_dev` is given, both passes read kv_len
+// from it (already clamped to [0, S] by the wrapper), so a decode step
+// whose length lives on the card needs no host synchronisation.  The grid
+// is then sized for the whole cache; split blocks past ceil(eff / block_s)
+// return at once and the merge pass stops there, so the result is the
+// integer path's, bit for bit (the partials' stride is the only change).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -66,6 +73,16 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
+// kv_len and the length the splits cover (eff_len: kv_len, or S when it is
+// 0), from the device when kv_dev is given.
+__device__ __forceinline__ void kv_lengths(const int* kv_dev, int s_len,
+                                           int& kv_len, int& eff_len) {
+  if (kv_dev != nullptr) {
+    kv_len = *kv_dev;
+    eff_len = kv_len > 0 ? kv_len : s_len;
+  }
+}
+
 // Partials: pm, pl (BH, G, nsplit) and po (BH, G, nsplit, D), fp32.
 template <typename T, int GC, int DPL>
 __global__ void __launch_bounds__(WARPS * 32)
@@ -73,8 +90,10 @@ __global__ void __launch_bounds__(WARPS * 32)
                  const T* __restrict__ v, float* __restrict__ pm,
                  float* __restrict__ pl, float* __restrict__ po, int s_len,
                  int hkv, int g_tot, int d, int kv_len, int eff_len,
-                 int block_s, float scale) {
+                 int block_s, float scale, const int* __restrict__ kv_dev) {
   const int split = blockIdx.x, nsplit = gridDim.x;
+  kv_lengths(kv_dev, s_len, kv_len, eff_len);
+  if (split * block_s >= eff_len) return;
   const int bh = blockIdx.y, b = bh / hkv, h = bh % hkv;
   const int g0 = blockIdx.z * GC;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
@@ -196,8 +215,14 @@ __global__ void __launch_bounds__(MWARPS * 32)
     decode_merge(const float* __restrict__ pm, const float* __restrict__ pl,
                  const float* __restrict__ po, float* __restrict__ o,
                  float* __restrict__ m_out, float* __restrict__ l_out,
-                 int nsplit, int d) {
+                 int nsplit, int d, int s_len, int block_s,
+                 const int* __restrict__ kv_dev) {
   const long long r0 = (long long)blockIdx.x * nsplit;
+  if (kv_dev != nullptr) {
+    int kv_len = 0, eff_len = 0;
+    kv_lengths(kv_dev, s_len, kv_len, eff_len);
+    nsplit = (eff_len + block_s - 1) / block_s;   // the stride stays r0's
+  }
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int d0 = lane * DPL;
   const bool lane_on = d0 < d;
@@ -252,11 +277,11 @@ template <typename T, int GC, int DPL>
 void split(const float* q, const void* k, const void* v, float* pm, float* pl,
            float* po, int b, int s, int hkv, int g, int d, int kv_len,
            int eff_len, int block_s, int nsplit, float scale,
-           cudaStream_t st) {
+           const int* kv_dev, cudaStream_t st) {
   const dim3 grid(nsplit, b * hkv, (g + GC - 1) / GC);
   decode_split<T, GC, DPL><<<grid, WARPS * 32, 0, st>>>(
       q, (const T*)k, (const T*)v, pm, pl, po, s, hkv, g, d, kv_len, eff_len,
-      block_s, scale);
+      block_s, scale, kv_dev);
 }
 
 // GC = the smallest of 1, 2, 4, 8 that holds min(G, 8) query heads.
@@ -264,10 +289,10 @@ template <typename T, int DPL>
 void split_gc(const float* q, const void* k, const void* v, float* pm,
               float* pl, float* po, int b, int s, int hkv, int g, int d,
               int kv_len, int eff_len, int block_s, int nsplit, float scale,
-              cudaStream_t st) {
+              const int* kv_dev, cudaStream_t st) {
 #define DA_SPLIT(GC)                                                         \
   split<T, GC, DPL>(q, k, v, pm, pl, po, b, s, hkv, g, d, kv_len, eff_len,  \
-                    block_s, nsplit, scale, st)
+                    block_s, nsplit, scale, kv_dev, st)
   if (g <= 1)
     DA_SPLIT(1);
   else if (g <= 2)
@@ -283,21 +308,21 @@ template <int DPL>
 int launch(int is_bf16, const float* q, const void* k, const void* v,
            float* part, float* o, float* m, float* l, int b, int s, int hkv,
            int g, int d, int kv_len, int eff_len, int block_s, int nsplit,
-           float scale, cudaStream_t st) {
+           float scale, const int* kv_dev, cudaStream_t st) {
   const long long rows = (long long)b * hkv * g * nsplit;
   float* pm = part;
   float* pl = part + rows;
   float* po = part + 2 * rows;
   if (is_bf16)
     split_gc<__nv_bfloat16, DPL>(q, k, v, pm, pl, po, b, s, hkv, g, d, kv_len,
-                                 eff_len, block_s, nsplit, scale, st);
+                                 eff_len, block_s, nsplit, scale, kv_dev, st);
   else
     split_gc<float, DPL>(q, k, v, pm, pl, po, b, s, hkv, g, d, kv_len,
-                         eff_len, block_s, nsplit, scale, st);
+                         eff_len, block_s, nsplit, scale, kv_dev, st);
   const int rc = (int)cudaGetLastError();
   if (rc != 0) return rc;
-  decode_merge<DPL><<<b * hkv * g, MWARPS * 32, 0, st>>>(pm, pl, po, o, m, l,
-                                                         nsplit, d);
+  decode_merge<DPL><<<b * hkv * g, MWARPS * 32, 0, st>>>(
+      pm, pl, po, o, m, l, nsplit, d, s, block_s, kv_dev);
   return (int)cudaGetLastError();
 }
 
@@ -305,20 +330,23 @@ int launch(int is_bf16, const float* q, const void* k, const void* v,
 
 // part holds (B*Hkv*G*nsplit) * (D + 2) floats; nsplit = ceil(eff_len /
 // block_s), eff_len = kv_len, or S when kv_len is 0; dpl = the values of a
-// row each lane holds (1, 2, 4 or 8; D <= 32 * dpl, D % dpl == 0).
+// row each lane holds (1, 2, 4 or 8; D <= 32 * dpl, D % dpl == 0).  With
+// kv_dev (an int32 on the device, in [0, S]) kv_len and eff_len are read
+// there and nsplit is ceil(S / block_s).
 extern "C" int decode_attention_launch(int is_bf16, const void* q,
                                        const void* k, const void* v,
                                        void* part, void* o, void* m, void* l,
                                        int b, int s, int hkv, int g, int d,
                                        int kv_len, int eff_len, int block_s,
                                        int nsplit, int dpl, float scale,
-                                       void* stream) {
+                                       const void* kv_dev, void* stream) {
   if (b == 0 || hkv == 0 || g == 0 || nsplit == 0) return 0;
   cudaStream_t st = (cudaStream_t)stream;
 #define DA_LAUNCH(DPL)                                                      \
   return launch<DPL>(is_bf16, (const float*)q, k, v, (float*)part,          \
                      (float*)o, (float*)m, (float*)l, b, s, hkv, g, d,      \
-                     kv_len, eff_len, block_s, nsplit, scale, st)
+                     kv_len, eff_len, block_s, nsplit, scale,               \
+                     (const int*)kv_dev, st)
   switch (dpl) {
     case 1: DA_LAUNCH(1);
     case 2: DA_LAUNCH(2);

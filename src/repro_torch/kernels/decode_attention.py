@@ -13,6 +13,11 @@ PyTorch version ``decode_attention_stats_plain``; any other device raises.
 before the split pass hands its partial (m, l, o) to the merge pass (the
 Pallas kernel's sequence block).  It sets how the work is spread over the
 card and so the order of the fp32 sums, never which positions count.
+
+``kv_len`` is a host integer or a one-element integer tensor on the
+cache's device, in [0, S].  On the card the kernel reads a tensor
+``kv_len`` from device memory (no host synchronisation) and gives the
+integer path's bits; on the CPU the plain version takes it as it is.
 """
 
 from __future__ import annotations
@@ -29,7 +34,7 @@ from repro_torch.kernels.ref import (
 _SIGS = {
     "decode_attention_launch": (
         [ctypes.c_int] + [ctypes.c_void_p] * 7 + [ctypes.c_int] * 10
-        + [ctypes.c_float, ctypes.c_void_p]),
+        + [ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p]),
 }
 
 
@@ -42,7 +47,7 @@ def _values_per_lane(d: int) -> int:
     raise ValueError(f"head dim {d} > 256 is not supported by the kernel")
 
 
-def _check_shapes(q, k, v, kv_len: int, block_s: int) -> None:
+def _check_shapes(q, k, v, kv_len, block_s: int) -> None:
     """The argument checks the kernel and the plain version share."""
     if q.dim() != 4 or k.dim() != 4:
         raise ValueError(f"q {tuple(q.shape)} must be (B, Hkv, G, D) and k "
@@ -54,7 +59,15 @@ def _check_shapes(q, k, v, kv_len: int, block_s: int) -> None:
         raise ValueError(f"v {tuple(v.shape)} differs from k {tuple(k.shape)}")
     if k.shape[1] < 1:
         raise ValueError("empty cache (S = 0)")
-    if not 0 <= kv_len <= k.shape[1]:
+    if isinstance(kv_len, torch.Tensor):
+        if kv_len.numel() != 1 or kv_len.dtype.is_floating_point \
+                or kv_len.dtype == torch.bool:
+            raise ValueError(f"a tensor kv_len must be one integer, got "
+                             f"{kv_len.dtype} {tuple(kv_len.shape)}")
+        if kv_len.device != k.device:
+            raise ValueError(f"kv_len is on {kv_len.device}, k on "
+                             f"{k.device}")
+    elif not 0 <= kv_len <= k.shape[1]:
         raise ValueError(f"kv_len {kv_len} outside [0, S = {k.shape[1]}]")
     if block_s < 1:
         raise ValueError(f"block_s must be positive, got {block_s}")
@@ -84,10 +97,13 @@ def _checked_cuda(q, k, v, block_s: int) -> int:
 
 
 def decode_attention_stats(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                           kv_len: int, block_s: int = 512):
+                           kv_len, block_s: int = 512):
     """Unnormalized (o, m, l) of one query token over the first ``kv_len``
-    positions of the cache (the split-KV statistics)."""
-    kv_len = int(kv_len)
+    positions of the cache (the split-KV statistics).  A tensor ``kv_len``
+    must already lie in [0, S]; it is not read on the host."""
+    on_device = isinstance(kv_len, torch.Tensor)
+    if not on_device:
+        kv_len = int(kv_len)
     _check_shapes(q, k, v, kv_len, block_s)
     if k.device.type == "cpu":
         return decode_attention_stats_plain(q, k, v, kv_len)
@@ -97,7 +113,12 @@ def decode_attention_stats(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dpl = _checked_cuda(q, k, v, block_s)
     b, hkv, g, d = q.shape
     s = k.shape[1]
-    eff = kv_len if kv_len > 0 else s
+    if on_device:
+        kv_dev = kv_len.reshape(1).to(torch.int32)
+        kv_len, eff = 0, s             # read from kv_dev by the kernel
+    else:
+        kv_dev = None
+        eff = kv_len if kv_len > 0 else s
     nsplit = -(-eff // block_s)
     o = torch.empty((b, hkv, g, d), dtype=torch.float32, device=k.device)
     m = torch.empty((b, hkv, g, 1), dtype=torch.float32, device=k.device)
@@ -109,7 +130,7 @@ def decode_attention_stats(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             int(k.dtype == torch.bfloat16), q.data_ptr(), k.data_ptr(),
             v.data_ptr(), part.data_ptr(), o.data_ptr(), m.data_ptr(),
             l.data_ptr(), b, s, hkv, g, d, kv_len, eff, block_s, nsplit, dpl,
-            1.0 / math.sqrt(d),
+            1.0 / math.sqrt(d), None if kv_dev is None else kv_dev.data_ptr(),
             torch.cuda.current_stream(k.device).cuda_stream)
     _build.LAUNCHES["decode_attention"] += 1
     _build.check(rc, "decode_attention")

@@ -10,8 +10,16 @@ copied verbatim, so one ``(S, idx, scal)`` triple feeds both packages.
 On a CUDA slab it launches the superkernel, which updates ``S`` in place
 (``S'`` is ``S``); on a CPU slab it runs the plain version
 ``ref.fused_iter_ref``.  Any other device raises.  A launch adds one to
-``_build.LAUNCHES["fused_iter_ell"]`` for the ELL plug-in and to
-``_build.LAUNCHES["fused_iter"]`` for the others.
+``_build.LAUNCHES`` under ``launch_key(kind, l)``: ``fused_iter`` for the
+single-device stencils and diagonal, ``fused_iter_ell`` for the ELL
+plug-in, ``fused_iter_halo`` and ``fused_iter_ell_halo`` for the
+halo-extended plug-ins of a shard, and ``fused_iter_runtime_l`` for any
+plug-in at a depth l > ``LMAX`` (the runtime-depth kernel).
+
+Plug-ins come in two forms, as in the JAX package: single-device (the
+operand is the ring-top row itself) and halo-extended (a shard of a row
+partition: ``prepare(z_top)`` builds the extended operand outside the
+kernel, and the plug-in's expression reads it).
 """
 
 from __future__ import annotations
@@ -189,6 +197,7 @@ def check_z_top_not_written(layout: SlabLayout) -> None:
 # ------------------------------------------------------------ SPMV plug-ins --
 
 SPMV_KINDS = ("stencil2d5", "stencil3d7", "stencil3d27", "diagonal", "ell")
+HALO_KINDS = ("stencil2d5_halo", "stencil3d7_halo", "ell_halo")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -198,8 +207,11 @@ class FusedSpmv:
     ``kind`` selects the kernel's SPMV template; ``dims``/``coef``/``d``/
     ``cols``/``vals`` are its parameters (grid sizes, eps_z or the
     27-point centre weight, the diagonal, the ELL arrays); ``expr`` is the
-    operator's plain apply, which the CPU path evaluates and which the
-    kernel mirrors term by term.
+    operator's plain apply of the ring-top row, which the CPU path
+    evaluates and which the kernel mirrors term by term.  A halo plug-in
+    (``kind`` in ``HALO_KINDS``) also has ``prepare(z_top)``, which builds
+    its ``ext_len``-long operand outside the kernel; its ``expr`` is the
+    shard-level expression applied to that operand.
     """
 
     kind: str
@@ -210,25 +222,53 @@ class FusedSpmv:
     d: torch.Tensor | None = None
     cols: torch.Tensor | None = None
     vals: torch.Tensor | None = None
+    prepare: Callable[[torch.Tensor], torch.Tensor] | None = None
+    ext_len: int = 0
 
     @property
     def operand_bytes(self) -> int:
-        """Bytes of an ELL operator's cols and vals, which the SPMV reads
-        beside the slab (``min_bytes`` counts a diagonal by ``has_diag``)."""
+        """Bytes of operator data the SPMV reads beside the slab: an ELL
+        operator's cols and vals, and a halo plug-in's halo, the part of
+        its extended operand past the shard's own ``n`` rows (those are a
+        copy of the ring-top row, which ``min_bytes`` counts once already,
+        as it leaves out the single-device plug-in's copy; it counts a
+        diagonal by ``has_diag``)."""
+        halo = self.ext_len - self.n if self.ext_len else 0
         return sum(t.numel() * t.element_size()
-                   for t in (self.cols, self.vals) if t is not None)
+                   for t in (self.cols, self.vals) if t is not None) + \
+            8 * halo
+
+
+def _with_prepare(expr, prepare):
+    return lambda z: expr(prepare(z))
 
 
 def resident_spmv(kind: str, expr: Callable[[torch.Tensor], torch.Tensor],
-                  dims: tuple[int, ...], coef: float = 0.0) -> FusedSpmv:
-    """Stencil SPMV: the ring-top row is copied to its own buffer before
-    the launch and read there by every block (the Pallas plug-in's
-    resident operand)."""
+                  dims: tuple[int, ...], coef: float = 0.0,
+                  prepare: Callable[[torch.Tensor], torch.Tensor] | None = None
+                  ) -> FusedSpmv:
+    """Stencil SPMV.  Single-device (``prepare`` None): the ring-top row is
+    copied to its own buffer before the launch and read there by every
+    block (the Pallas plug-in's resident operand), and ``expr`` is the
+    operator's apply.  Halo-extended (``stencil2d5``/``stencil3d7`` of one
+    shard, ``dims`` the shard's grid (nxl, ny[, nz])): ``prepare(z_top)``
+    returns the (nxl + 2)-plane operand whose first and last planes are the
+    neighbours' boundary planes (zero at the domain's ends), and ``expr``
+    is the shard-level expression on it (``ref.stencil2d5_halo_ref``,
+    ``ref.stencil3d7_halo_ref``)."""
     if kind not in SPMV_KINDS[:3]:
         raise ValueError(f"unknown stencil kind {kind!r}")
     dims3 = tuple(dims) + (1,) * (3 - len(dims))
-    return FusedSpmv(kind=kind, expr=expr, n=math.prod(dims3),
-                     dims=dims3, coef=float(coef))
+    if prepare is None:
+        return FusedSpmv(kind=kind, expr=expr, n=math.prod(dims3),
+                         dims=dims3, coef=float(coef))
+    if kind == "stencil3d27":
+        raise ValueError("stencil3d27 has no halo-extended plug-in (the JAX "
+                         "package's distributed fused path has none)")
+    return FusedSpmv(kind=kind + "_halo", expr=_with_prepare(expr, prepare),
+                     n=math.prod(dims3), dims=dims3, coef=float(coef),
+                     prepare=prepare,
+                     ext_len=(dims3[0] + 2) * dims3[1] * dims3[2])
 
 
 def diagonal_spmv(d: torch.Tensor) -> FusedSpmv:
@@ -237,15 +277,27 @@ def diagonal_spmv(d: torch.Tensor) -> FusedSpmv:
                      n=int(d.shape[0]), d=d)
 
 
-def ell_spmv(cols: torch.Tensor, vals: torch.Tensor) -> FusedSpmv:
+def ell_spmv(cols: torch.Tensor, vals: torch.Tensor,
+             prepare: Callable[[torch.Tensor], torch.Tensor] | None = None,
+             ext_len: int = 0) -> FusedSpmv:
     """Padded-row ELL SPMV (``SparseOp``): each row gathers its W slots
     from the ring-top copy and sums them in ``ref.ell_rowsum``'s order.
     ``vals`` is held in fp64, the slab's type (exact for fp32 values, and
-    the cast the plain apply makes)."""
+    the cast the plain apply makes).  Halo-extended (one shard of a
+    ``PartitionPlan``): ``prepare(z_top)`` returns the ``ext_len``-long
+    vector [own | from prev | from next] that the plan's remapped ``cols``
+    index."""
     vals64 = vals.to(torch.float64)
-    return FusedSpmv(kind="ell",
-                     expr=lambda z: ell_rowsum(vals64.to(z.dtype), z[cols]),
-                     n=int(cols.shape[0]), cols=cols, vals=vals64)
+
+    def expr(z):
+        return ell_rowsum(vals64.to(z.dtype), z[cols])
+
+    if prepare is None:
+        return FusedSpmv(kind="ell", expr=expr, n=int(cols.shape[0]),
+                         cols=cols, vals=vals64)
+    return FusedSpmv(kind="ell_halo", expr=_with_prepare(expr, prepare),
+                     n=int(cols.shape[0]), cols=cols, vals=vals64,
+                     prepare=prepare, ext_len=int(ext_len))
 
 
 # ---------------------------------------------------------------- kernel --
@@ -257,7 +309,45 @@ _ARGTYPES = [ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
              ctypes.c_int, ctypes.c_int, ctypes.c_double, ctypes.c_void_p,
              ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
 BLOCK = 256          # threads per block, fixed in csrc/fused_iter.cuh
-LMAX = 8             # deepest pipeline the kernel is instantiated for
+LMAX = 8             # deepest pipeline instantiated at compile time
+
+
+def runtime_smem_bytes(l: int) -> int:
+    """Dynamic shared memory a block of the runtime-depth kernel takes at
+    depth l (``rt_smem_bytes`` in csrc/fused_iter.cuh): the 2l+1 products
+    and l fill and l recurrence values of each of the BLOCK threads, the
+    scalar vector, the index vector and two store masks."""
+    return (4 * l + 1) * BLOCK * 8 + (8 + l) * 8 + (8 * l + 9) * 4 + 2 * l * 4
+
+
+def deepest_runtime_l(smem_optin: int) -> int:
+    """The deepest l whose runtime-depth kernel fits ``smem_optin`` bytes
+    of shared memory a block."""
+    return (smem_optin - runtime_smem_bytes(0)) // (runtime_smem_bytes(1)
+                                                     - runtime_smem_bytes(0))
+
+
+def launch_key(kind: str, l: int) -> str:
+    """The ``_build.LAUNCHES`` key one launch of plug-in ``kind`` at depth
+    ``l`` counts under."""
+    if l > LMAX:
+        return "fused_iter_runtime_l"
+    if kind in ("ell", "ell_halo"):
+        return "fused_iter_" + kind
+    if kind in HALO_KINDS:
+        return "fused_iter_halo"
+    return "fused_iter"
+
+
+def smem_optin(lib_name: str, device: torch.device) -> int:
+    """The card's largest dynamic shared memory a block can opt in to."""
+    fn = getattr(_build.load(lib_name, {lib_name + "_smem_optin":
+                                        [ctypes.c_void_p]}),
+                 lib_name + "_smem_optin")
+    out = ctypes.c_int(0)
+    with torch.cuda.device(device):
+        _build.check(fn(ctypes.byref(out)), lib_name + "_smem_optin")
+    return int(out.value)
 
 
 def _check(t: torch.Tensor, name: str, dtype, shape, device) -> None:
@@ -292,8 +382,8 @@ def build_fused_iteration(
                          "(want 'ghysels' or 'stable')")
     check_z_top_not_written(layout)
     n = spmv.n
-    # The ELL instantiation counts its launches apart from the others.
-    count_key = "fused_iter_ell" if spmv.kind == "ell" else "fused_iter"
+    count_key = launch_key(spmv.kind, l)
+    name = "fused_iter_" + spmv.kind
     prec = (lambda v: v) if inv_diag is None else \
         (lambda v: inv_diag.to(v.dtype) * v)
 
@@ -304,10 +394,15 @@ def build_fused_iteration(
         return fused_iter_ref(S, idx, scal, spmv.expr, prec, layout)
 
     def launch(S, idx, scal):
-        if l > LMAX:
-            raise NotImplementedError(
-                f"the CUDA superkernel is instantiated for l <= {LMAX}")
         dev = S.device
+        if l > LMAX:
+            need, have = runtime_smem_bytes(l), smem_optin(name, dev)
+            if need > have:
+                raise ValueError(
+                    f"pipeline depth l = {l} exceeds the superkernel's "
+                    f"deepest, l = {deepest_runtime_l(have)}: the "
+                    f"runtime-depth kernel needs {need} bytes of shared "
+                    f"memory a block, the card allows {have}")
         _check(S, "S", torch.float64, (nv, n), dev)
         _check(idx, "idx", torch.int32, (IX["size"],), dev)
         _check(scal, "scal", torch.float64, (IS["size"],), dev)
@@ -319,16 +414,24 @@ def build_fused_iteration(
         if d is not None:
             _check(d, "d", torch.float64, (n,), dev)
         cols, vals, w = spmv.cols, spmv.vals, 0
-        if spmv.kind == "ell":
+        if cols is not None:
             w = int(cols.shape[1])
             _check(cols, "cols", torch.int32, (n, w), dev)
             _check(vals, "vals", torch.float64, (n, w), dev)
         nb = (n + BLOCK - 1) // BLOCK
-        zbuf = None if spmv.kind == "diagonal" else \
-            torch.empty(n, dtype=S.dtype, device=dev)
+        if spmv.prepare is not None:
+            # The halo plug-ins read the operand ``prepare`` builds from the
+            # ring-top row (selected on the device: no host sync).
+            pos = IX["z_top"]
+            zbuf = spmv.prepare(S.index_select(0, idx[pos:pos + 1])[0])
+            _check(zbuf, "prepared operand", torch.float64,
+                   (spmv.ext_len,), dev)
+        elif spmv.kind == "diagonal":
+            zbuf = None
+        else:
+            zbuf = torch.empty(n, dtype=S.dtype, device=dev)
         part = torch.empty((nd, nb), dtype=S.dtype, device=dev)
         partials = torch.empty((nd,), dtype=S.dtype, device=dev)
-        name = "fused_iter_" + spmv.kind
         fn = getattr(_build.load(name, {name: _ARGTYPES}), name)
         nx, ny, nz = spmv.dims
         with torch.cuda.device(dev):

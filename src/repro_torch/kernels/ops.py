@@ -120,25 +120,49 @@ def decode_attention_stats(q, k, v, kv_len, block_s: int = 512):
     * ``kv_len`` > S: the kernel runs over all S positions, and the
       e = min(kv_len, S_p) - S padding positions the JAX wrapper counts
       as valid (score 0, value 0) are folded in: m' = max(m, 0),
-      l' = l exp(m - m') + e exp(-m'), o' = o exp(m - m')."""
+      l' = l exp(m - m') + e exp(-m'), o' = o exp(m - m').
+
+    ``kv_len`` is a host integer, or a 0-d or (1, 1) integer tensor on the
+    cache's device (the JAX wrappers' device scalar).  A tensor is never
+    read on the host: the clamps and the edge folding run as tensor
+    selects, and the kernel reads the length from device memory, with the
+    same bits as the integer path."""
     b, h, d = q.shape
     s, hkv = k.shape[1], k.shape[2]
     if h % hkv:
         raise ValueError(f"{h} query heads do not group over {hkv} KV heads")
-    want = max(int(kv_len), 0)
     qg = q.reshape(b, hkv, h // hkv, d)
-    o, m, l = _da.decode_attention_stats(qg, k, v, min(want, s), block_s)
     padded = -(-s // block_s) * block_s
+    if isinstance(kv_len, torch.Tensor):
+        if kv_len.numel() != 1:
+            raise ValueError(f"kv_len must hold one integer, got shape "
+                             f"{tuple(kv_len.shape)}")
+        want = kv_len.reshape(()).to(torch.int64).clamp_min(0)
+        o, m, l = _da.decode_attention_stats(
+            qg, k, v, want.clamp_max(s).to(torch.int32), block_s)
+        o_e, m_e, l_e = _fold_padding(o, m, l, want.clamp_max(padded) - s)
+        over = want > s if padded > s else torch.zeros_like(want, dtype=bool)
+        l = torch.where(want == 0, l + (padded - s),
+                        torch.where(over, l_e, l))
+        return torch.where(over, o_e, o), torch.where(over, m_e, m), l
+    want = max(int(kv_len), 0)
+    o, m, l = _da.decode_attention_stats(qg, k, v, min(want, s), block_s)
     if want == 0:
         l = l + (padded - s)
     elif want > s and padded > s:
-        extra = min(want, padded) - s
-        m_new = torch.clamp_min(m, 0.0)
-        alpha = torch.exp(m - m_new)
-        o = o * alpha
-        l = l * alpha + extra * torch.exp(-m_new)
-        m = m_new
+        o, m, l = _fold_padding(o, m, l, min(want, padded) - s)
     return o, m, l
+
+
+def _fold_padding(o, m, l, extra):
+    """Fold ``extra`` positions of score 0 and value 0 into (o, m, l):
+    m' = max(m, 0), l' = l exp(m - m') + extra exp(-m'), o' = o exp(m - m').
+    ``extra`` is an int or an integer tensor (converted to fp32 exactly)."""
+    if isinstance(extra, torch.Tensor):
+        extra = extra.to(torch.float32)
+    m_new = torch.clamp_min(m, 0.0)
+    alpha = torch.exp(m - m_new)
+    return o * alpha, m_new, l * alpha + extra * torch.exp(-m_new)
 
 
 def decode_attention(q, k, v, kv_len, block_s: int = 512) -> torch.Tensor:

@@ -33,6 +33,35 @@ def stencil3d7_ref(g: torch.Tensor, eps_z: float = 1.0) -> torch.Tensor:
     )
 
 
+def stencil2d5_halo_ref(zext: torch.Tensor, nxl: int, ny: int) -> torch.Tensor:
+    """The 5-point Laplacian of one shard of an x-partition, on its
+    halo-extended operand (nxl + 2, ny) flattened: planes 0 and nxl + 1 are
+    the neighbours' boundary rows (zero at the domain's ends), so x needs no
+    edge test.  The JAX package's shard expression
+    (``repro/parallel/distributed.py``, ``_fused_spmv_local``), term by
+    term; stacked over the shards it equals :func:`stencil2d5_ref`."""
+    gp = zext.reshape(nxl + 2, ny)
+    g = gp[1:-1]
+    gy = F.pad(g, (1, 1))
+    return (4.0 * g - gp[:-2] - gp[2:] - gy[:, :-2] - gy[:, 2:]).reshape(-1)
+
+
+def stencil3d7_halo_ref(zext: torch.Tensor, nxl: int, ny: int, nz: int,
+                        eps_z: float) -> torch.Tensor:
+    """The anisotropic 7-point stencil of one shard on its (nxl + 2, ny, nz)
+    halo-extended operand (see :func:`stencil2d5_halo_ref`)."""
+    gp = zext.reshape(nxl + 2, ny, nz)
+    g = gp[1:-1]
+    gy = F.pad(g, (0, 0, 1, 1))
+    gz = F.pad(g, (1, 1))
+    ez = torch.full((), eps_z, dtype=zext.dtype, device=zext.device)
+    out = ((4.0 + 2.0 * ez) * g
+           - gp[:-2] - gp[2:]
+           - gy[:, :-2, :] - gy[:, 2:, :]
+           - ez * gz[:, :, :-2] - ez * gz[:, :, 2:])
+    return out.reshape(-1)
+
+
 def stencil3d27_ref(g: torch.Tensor, centre: float) -> torch.Tensor:
     nx, ny, nz = g.shape
     p = F.pad(g, (1, 1, 1, 1, 1, 1))

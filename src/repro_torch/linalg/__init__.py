@@ -2,6 +2,8 @@ from repro_torch.linalg.operators import (DenseSPD, DiagonalOp,
                                           LinearOperator, Stencil2D5,
                                           Stencil3D7, Stencil3D27,
                                           laplacian_2d_spectrum)
+from repro_torch.linalg.partition import (PartitionPlan, partition_spd,
+                                          plan_for)
 from repro_torch.linalg.preconditioners import (BlockJacobi, IdentityPrec,
                                                 JacobiPrec, Preconditioner)
 from repro_torch.linalg.sparse import (SparseOp, bandwidth, ell_rowsum,
@@ -16,4 +18,5 @@ __all__ = [
     "IdentityPrec", "JacobiPrec", "BlockJacobi", "SparseOp", "ell_rowsum",
     "sparse_from_coo", "sparse_from_dense", "rcm_permutation", "bandwidth",
     "permute_spd", "rcm_reorder", "random_fem_mesh", "random_fem_icesheet",
+    "PartitionPlan", "partition_spd", "plan_for",
 ]

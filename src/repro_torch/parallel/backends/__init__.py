@@ -18,7 +18,7 @@ def get_backend(name: str, **kwargs) -> ReductionBackend:
     if name in ("shard_map", "multiprocess"):
         raise NotImplementedError(
             f"backend {name!r} is not ported yet (ROADMAP.md, queue 1 "
-            "item 5: one torch.distributed backend)")
+            "item 2: one torch.distributed backend)")
     try:
         cls = _REGISTRY[name]
     except KeyError:

@@ -1,0 +1,260 @@
+"""Staged ring reduction, in-process half (counterpart of
+``repro/parallel/reduction.py``, DESIGN.md §14).
+
+The paper hides one global reduction per iteration behind l iterations of
+work.  The staged form makes the reduction's progress explicit: the
+(2l+1)-entry dot block is a ring ALLGATHER of raw per-shard partials,
+P-1 hops grouped into ``stages`` advance steps that the solver runs, and
+the wait sums the gathered partials IN RANK ORDER.  Two properties follow:
+
+1.  **Stage-count invariance.**  ``stages`` only groups the hops; the
+    wait's summation is the same for every stage count, so residual
+    histories are bitwise identical across ladder configurations.
+2.  **Mixed precision.**  With ``payload_dtype=torch.float32`` each
+    partial is rounded to fp32 once (every hop carries half the bytes)
+    and the wait accumulates the fp32 partials into an fp64 compensated
+    (Kahan) sum, so the error stays at one fp32 rounding per partial.
+
+This module holds the parts that need no wire: the configuration, the
+hop schedule, ``ordered_reduce``, the wire accounting and the single-device
+*ladder oracle* (``oracle_solver_ops``): the vector splits into
+``virtual_shards`` contiguous slices whose partials fill the gather buffer
+directly, so one device reproduces a staged P-shard run without a wire.
+The hops themselves (``staged_start``/``advance``/``wait`` of the JAX
+module) come with the torch.distributed backend.  Nothing here records a
+metric: the JAX module's ``backend_reduction_fallback`` gauge belongs to
+``obs/``, which is not ported.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+import warnings
+
+import torch
+
+from repro_torch.core.types import SolverOps, dot_block_rows
+
+__all__ = ["ReductionFallbackWarning", "StagedConfig", "hop_groups",
+           "ordered_reduce", "oracle_start", "oracle_partials",
+           "oracle_ops_pieces", "oracle_solver_ops",
+           "resolve_backend_reduction", "hop_payload_bytes",
+           "reduction_wire_bytes"]
+
+
+class ReductionFallbackWarning(UserWarning):
+    """A backend cannot run the requested staged ring ladder and
+    downgraded to the monolithic all-reduce: the arithmetic is honoured,
+    the overlap mechanism is lost."""
+
+
+@dataclasses.dataclass(frozen=True)
+class StagedConfig:
+    """Shape of one staged ring reduction.
+
+    ``n_shards`` is the ring size P; ``stages`` groups the P-1 allgather
+    hops into that many advance steps (``hop_groups``); ``payload_dtype``
+    is the wire dtype (None = the solver dtype); a payload narrower than
+    the solver dtype switches the wait to fp64 compensated accumulation.
+    ``axis`` names the ring's process group (None = the local oracle).
+    """
+
+    n_shards: int
+    stages: int = 2
+    payload_dtype: torch.dtype | None = None
+    axis: str | None = None
+
+    def __post_init__(self):
+        if self.n_shards < 1:
+            raise ValueError(f"n_shards must be >= 1, got {self.n_shards}")
+        if not (1 <= self.stages <= max(self.n_shards - 1, 1)):
+            raise ValueError(
+                f"stages must be in [1, {max(self.n_shards - 1, 1)}] "
+                f"for {self.n_shards} shards, got {self.stages}")
+
+    @property
+    def n_hops(self) -> int:
+        """Wire hops of one reduction: the P-1 ring-allgather steps."""
+        return self.n_shards - 1
+
+    def wire_dtype(self, solver_dtype: torch.dtype) -> torch.dtype:
+        return solver_dtype if self.payload_dtype is None \
+            else self.payload_dtype
+
+    def compensated(self, solver_dtype: torch.dtype) -> bool:
+        """fp64-compensated wait accumulation when the wire narrows."""
+        return (self.wire_dtype(solver_dtype).itemsize
+                < solver_dtype.itemsize)
+
+
+def hop_groups(n_shards: int, stages: int) -> list[list[int]]:
+    """Partition the ring's ``n_shards - 1`` hop indices into ``stages``
+    contiguous advance steps, earlier steps no smaller than later ones
+    (ceil-split), so the ladder front-loads while the window is widest."""
+    n_hops = n_shards - 1
+    groups: list[list[int]] = []
+    start = 0
+    for step in range(stages):
+        size = math.ceil((n_hops - start) / (stages - step))
+        groups.append(list(range(start, start + size)))
+        start += size
+    assert start == n_hops, (n_shards, stages, groups)
+    return groups
+
+
+def ordered_reduce(gathered: torch.Tensor, out_dtype: torch.dtype,
+                   compensated: bool) -> torch.Tensor:
+    """Sum the (P, K[, s]) gathered partials over shard rank 0..P-1.
+
+    The explicit rank-ascending add chain is the determinism anchor: the
+    same order on every shard and in the local oracle.  ``compensated``
+    switches to Kahan accumulation in ``out_dtype`` (the fp32-payload
+    path: one compensated fp64 sum of P fp32 partials)."""
+    if not compensated:
+        acc = gathered[0].to(out_dtype)
+        for k in range(1, gathered.shape[0]):
+            acc = acc + gathered[k].to(out_dtype)
+        return acc
+    acc = torch.zeros(gathered.shape[1:], dtype=out_dtype,
+                      device=gathered.device)
+    comp = torch.zeros_like(acc)
+    for k in range(gathered.shape[0]):
+        y = gathered[k].to(out_dtype) - comp
+        t = acc + y
+        comp = (t - acc) - y
+        acc = t
+    return acc
+
+
+# --------------------------------------------------------------------------
+# The ladder oracle (single device, no wire).
+# --------------------------------------------------------------------------
+
+def oracle_start(mat: torch.Tensor, vec: torch.Tensor,
+                 cfg: StagedConfig) -> torch.Tensor:
+    """Local partials of all ``n_shards`` virtual slices at once.
+
+    The vector axis splits into P contiguous slices, the row blocks a
+    P-shard partition owns, and each slice's partial is the same
+    ``dot_block_rows`` expression a shard evaluates, so the gather buffer
+    is a staged P-shard run's final buffer and ``ordered_reduce`` finishes
+    it identically."""
+    p = cfg.n_shards
+    n = vec.shape[0]
+    if n % p:
+        raise ValueError(f"oracle needs n divisible by virtual shards "
+                         f"({n} % {p})")
+    wire = cfg.wire_dtype(vec.dtype)
+    nl = n // p
+    mats = mat.reshape(mat.shape[0], p, nl)
+    vecs = vec.reshape(p, nl)
+    return torch.stack([dot_block_rows(mats[:, r, :], vecs[r]).to(wire)
+                        for r in range(p)])
+
+
+def oracle_partials(partials: torch.Tensor,
+                    cfg: StagedConfig) -> torch.Tensor:
+    """Oracle ``combine_partials``: one device has ONE partial (the
+    superkernel's whole-vector sum), filed as shard 0's slot of the gather
+    buffer with zeros elsewhere."""
+    wire = cfg.wire_dtype(partials.dtype)
+    buf = torch.zeros((cfg.n_shards,) + tuple(partials.shape), dtype=wire,
+                      device=partials.device)
+    buf[0] = partials.to(wire)
+    return buf
+
+
+def oracle_ops_pieces(cfg: StagedConfig, solver_dtype=None) -> dict:
+    """``SolverOps.create`` overrides for the local ladder oracle:
+    ``advance`` is the identity (no wire on one device), ``wait`` runs the
+    rank-ordered (compensated for a narrow wire) reduce into the solver
+    dtype (``solver_dtype``, default fp64)."""
+    out_default = torch.float64 if solver_dtype is None else solver_dtype
+
+    def start(mat, vec):
+        return oracle_start(mat, vec, cfg)
+
+    def advance(handle, step):
+        return handle
+
+    def wait(handle, advanced=0):
+        out = handle.dtype if cfg.payload_dtype is None else out_default
+        return ordered_reduce(handle, out, cfg.compensated(out))
+
+    def handle_zeros(shape, dtype, device=None):
+        return torch.zeros((cfg.n_shards,) + tuple(shape),
+                           dtype=cfg.wire_dtype(dtype), device=device)
+
+    return dict(dot_block_start=start, dot_block_advance=advance,
+                dot_block_wait=wait, handle_zeros=handle_zeros,
+                combine_partials=lambda p_: oracle_partials(p_, cfg))
+
+
+def oracle_solver_ops(op, prec, cfg: StagedConfig) -> SolverOps:
+    """Single-device SolverOps running the ladder oracle, the staged
+    analogue of ``SolverOps.local``: ``cfg.n_shards`` is the VIRTUAL shard
+    count.  The fused path runs the whole-operator superkernel, whose one
+    partial ``oracle_partials`` files in slot 0."""
+    from repro_torch.kernels.ops import fused_iteration_factory
+
+    pfun = (lambda v: v) if prec is None else (lambda v: prec.apply(v))
+    return SolverOps.create(
+        apply_a=lambda v: op.apply(v),
+        prec=pfun,
+        dot_block=dot_block_rows,
+        fused_iter_factory=fused_iteration_factory(op, prec),
+        **oracle_ops_pieces(cfg),
+    )
+
+
+def resolve_backend_reduction(backend, reduction: str, stages: int, dtype,
+                              n_shards: int,
+                              axis: str | None) -> StagedConfig | None:
+    """Reduction-request resolution shared by backend constructors.
+
+    Validates the mode, clamps ``stages`` into [1, P-1], honours the
+    backend's ``supports_staged_reduction`` flag (a declining backend
+    downgrades to monolithic, warns, and records why), and sets
+    ``reduction_mode`` / ``reduction_fallback`` on the backend.  Returns
+    the StagedConfig for the solver ops, or None for the monolithic
+    reduction."""
+    if reduction == "monolithic":
+        backend.reduction_mode = "monolithic"
+        backend.reduction_fallback = None
+        return None
+    if reduction != "staged":
+        raise ValueError(f"unknown reduction mode {reduction!r} "
+                         "(want 'monolithic' or 'staged')")
+    if not type(backend).supports_staged_reduction:
+        backend.reduction_mode = "monolithic"
+        backend.reduction_fallback = (
+            f"backend {backend.name!r} does not support the staged ring "
+            "ladder; dot block downgraded to the monolithic all-reduce")
+        warnings.warn(backend.reduction_fallback, ReductionFallbackWarning,
+                      stacklevel=2)
+        return None
+    backend.reduction_mode = "staged"
+    backend.reduction_fallback = None
+    n_shards = max(n_shards, 1)
+    stages = max(1, min(stages, max(n_shards - 1, 1)))
+    return StagedConfig(n_shards=n_shards, stages=stages,
+                        payload_dtype=dtype, axis=axis)
+
+
+# --------------------------------------------------------------------------
+# Wire accounting.
+# --------------------------------------------------------------------------
+
+def hop_payload_bytes(l: int, s: int = 1, dsize: int = 8) -> int:
+    """Bytes ONE ladder hop carries: the (2l+1)[, s] dot block in the wire
+    dtype (the fp32 option halves exactly this)."""
+    return (2 * l + 1) * max(s, 1) * dsize
+
+
+def reduction_wire_bytes(n_shards: int, l: int, s: int = 1,
+                         dsize: int = 8) -> int:
+    """Bytes one shard sends per staged reduction: P-1 hops x the hop
+    payload (more in total than a tree all-reduce; the regime is
+    latency-bound, tiny K)."""
+    return (n_shards - 1) * hop_payload_bytes(l, s, dsize)

@@ -10,6 +10,8 @@ scale) rather than bitwise.  Dot partials are sums over N in a different
 order (torch.sum vs XLA): |diff| <= 1e-13 * sum_j |m_kj u_j|.
 """
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -218,3 +220,184 @@ def test_superkernel_rows_bitwise_on_card(cuda_device):
                 S_k, d_k = fiter(S.clone(), idx, scal)
                 assert torch.equal(S_k, S_p)
                 torch.testing.assert_close(d_k, d_p, rtol=1e-12, atol=1e-12)
+
+
+# ------------------------------------------------ deeper pipelines (l > 8) --
+
+def test_runtime_depth_sizes():
+    """The runtime-depth kernel's shared memory per block: l = 9 takes
+    76 308 bytes; on an H100 (232 448 bytes a block) l = 27 is the deepest
+    (224 628 bytes) and l = 28 (232 868 bytes) does not fit."""
+    assert tfi.runtime_smem_bytes(9) == 76308
+    assert tfi.runtime_smem_bytes(27) == 224628
+    assert tfi.runtime_smem_bytes(28) == 232868
+    assert tfi.deepest_runtime_l(232448) == 27
+    assert tfi.launch_key("stencil2d5", tfi.LMAX) == "fused_iter"
+    assert tfi.launch_key("ell", 2) == "fused_iter_ell"
+    assert tfi.launch_key("ell_halo", 2) == "fused_iter_ell_halo"
+    assert tfi.launch_key("stencil3d7_halo", 3) == "fused_iter_halo"
+    for kind in tfi.SPMV_KINDS + tfi.HALO_KINDS:
+        assert tfi.launch_key(kind, tfi.LMAX + 1) == "fused_iter_runtime_l"
+
+
+@pytest.mark.parametrize("name", ["stencil2d5", "ell"])
+@pytest.mark.parametrize("l", [9, 12])
+def test_deep_pipeline_fused_path_matches_jax_ref(name, l):
+    """l > 8 through the fused path's plain version on the CPU (the
+    superkernel wrapper of the fused factory) against the JAX package's
+    ``fused_iter_ref``."""
+    jop, top = _pair(name)
+    layout = tfi.SlabLayout(l=l, RB=max(l + 1, 3))
+    jl = jfi.SlabLayout(l=l, RB=max(l + 1, 3))
+    jp = JJacobi.from_operator(jop)
+    tp = convert.jacobi(np.asarray(jp.inv_diag), "cpu")
+    fiter = tfactory(top, tp)(layout)
+    for i in (0, l, 2 * l + 3):
+        S, idx, scal = _triple(layout, jop.n, i, seed=31 * l + i)
+        S_j, d_j = jref.fused_iter_ref(jnp.asarray(S), jnp.asarray(idx),
+                                       jnp.asarray(scal), jop.apply,
+                                       jp.apply, jl)
+        St, it, ct = convert.vector_phase(S, idx, scal, "cpu")
+        S_t, d_t = fiter(St, it, ct)
+        _, mat, u = tref.fused_iter_unfused(St, it, ct, top.apply, tp.apply,
+                                            layout)
+        scale = 30.0 * np.abs(S).max() * max(1.0, np.abs(scal).max()) ** 2
+        _compare(S_j, d_j, S_t, d_t, scale, mat.numpy(), u.numpy())
+
+
+# ----------------------------------------- halo-extended plug-ins (shards) --
+
+N_SHARDS = 4
+
+
+def _shard_case(name, device="cpu"):
+    """(whole operator, loc dicts, (P, nl) -> (P, ext) halo of the ring-top
+    stack) for ``N_SHARDS`` virtual shards of the port operator."""
+    from repro_torch.linalg import partition as tpart
+    from repro_torch.parallel.distributed import halo_first_dim
+
+    _, top = _pair(name)
+    top = top.to(device) if name == "ell" else \
+        convert.operator(name, device=device,
+                         **{k: v for k, v in convert.operator_fields(top)
+                            .items() if k != "kind"})
+    p, nl = N_SHARDS, top.n // N_SHARDS
+    if name == "ell":
+        plan = tpart.partition_spd(top, p)
+        assert plan.identity_perm          # the config is RCM-ordered
+        locs = [{f: getattr(plan, f)[s] for f in
+                 ("cols", "vals", "send_up", "send_dn")} for s in range(p)]
+        return top, locs, lambda z: tpart.halo_exchange(z, plan.send_up,
+                                                        plan.send_dn)
+    if name == "diagonal":
+        return top, [{"d": top.d[s * nl:(s + 1) * nl]} for s in range(p)], \
+            None
+    plane = top.n // top.nx
+    return top, [{} for _ in range(p)], lambda z: halo_first_dim(z, plane)
+
+
+def _shard_phase(top, locs, halo, layout, inv_diag, S, idx, scal):
+    """Every shard's vector phase through its halo plug-in: (stacked rows
+    (NV, n), (P, 2l+1) partials).  The shards' operands come from the
+    in-process halo of the ring-top rows, read before any shard runs."""
+    from repro_torch.parallel.distributed import fused_spmv_local
+
+    p, nl = N_SHARDS, top.n // N_SHARDS
+    zt = S[int(idx[tfi.idx_layout(layout.l)["z_top"]])].reshape(p, nl)
+    ext = None if halo is None else halo(zt)
+    rows, parts = [], []
+    for s in range(p):
+        def prepare(z, s=s):
+            assert torch.equal(z, zt[s])
+            return ext[s]
+
+        spmv = fused_spmv_local(top, locs[s], p,
+                                None if ext is None else prepare)
+        inv = None if inv_diag is None else inv_diag[s * nl:(s + 1) * nl]
+        fiter = tfi.build_fused_iteration(layout, spmv, inv)
+        S_s, d_s = fiter(S[:, s * nl:(s + 1) * nl].contiguous(), idx, scal)
+        rows.append(S_s)
+        parts.append(d_s)
+    return torch.cat(rows, dim=1), torch.stack(parts)
+
+
+@pytest.mark.parametrize("name", ["stencil2d5", "stencil3d7", "ell",
+                                  "diagonal"])
+@pytest.mark.parametrize("l", [1, 2, 3])
+def test_halo_plugins_stack_to_single_device_phase(name, l):
+    """Stacked over the shards, the halo plug-ins' plain versions give the
+    single-device plain vector phase's rows bitwise, and their partials,
+    summed in rank order, its partials within 1e-13 of sum |m u|."""
+    from repro_torch.parallel.reduction import ordered_reduce
+
+    top, locs, halo = _shard_case(name)
+    for rec in ("ghysels", "stable"):
+        for jac in (False, True):
+            layout = tfi.SlabLayout(l=l, RB=max(l + 1, 3), recurrence=rec)
+            tp = convert.jacobi(1.0 / top.diag().numpy(), "cpu") if jac \
+                else None
+            prec = (lambda v: v) if tp is None else tp.apply
+            for i in (0, l, 2 * l + 3):
+                S, idx, scal = convert.vector_phase(
+                    *_triple(layout, top.n, i, seed=17 * l + i), "cpu")
+                S_w, d_w = tfactory(top, tp)(layout)(S, idx, scal)
+                S_h, d_h = _shard_phase(top, locs, halo, layout,
+                                        None if tp is None else tp.inv_diag,
+                                        S, idx, scal)
+                assert torch.equal(S_h, S_w)
+                _, mat, u = tref.fused_iter_unfused(S, idx, scal, top.apply,
+                                                    prec, layout)
+                abs_sum = (mat.abs() * u.abs()[None, :]).sum(dim=1)
+                total = ordered_reduce(d_h, torch.float64, False)
+                assert ((total - d_w).abs() <= RTOL * abs_sum + 1e-300).all()
+
+
+def test_shard_plugin_choice():
+    """No fused shard path where the JAX package has none: Stencil3D27 and
+    a kernel-routed operator; a stencil's halo plug-in has its operand
+    length, and 3D27 has no halo form at all."""
+    from repro_torch.linalg import Stencil3D27, Stencil3D7
+    from repro_torch.parallel.distributed import fused_spmv_local
+
+    ident = lambda z: z  # noqa: E731
+    assert fused_spmv_local(Stencil3D27(8, 4, 4, device="cpu"), {}, 2,
+                            ident) is None
+    assert fused_spmv_local(Stencil2D5(8, 4, use_kernel=True, device="cpu"),
+                            {}, 2, ident) is None
+    _, ell = _pair("ell")
+    assert fused_spmv_local(
+        dataclasses.replace(ell, use_kernel=True), {}, 2, ident) is None
+    sp = fused_spmv_local(Stencil3D7(8, 6, 4, device="cpu"), {}, 4, ident)
+    assert sp.kind == "stencil3d7_halo" and sp.ext_len == 4 * 6 * 4
+    # the bound counts only the two halo planes: the own part is z_top's copy
+    assert sp.n == 2 * 6 * 4 and sp.operand_bytes == 8 * 2 * 6 * 4
+    with pytest.raises(ValueError, match="halo"):
+        tfi.resident_spmv("stencil3d27", ident, (2, 4, 4), prepare=ident)
+
+
+@pytest.mark.cuda
+def test_halo_plugins_and_deep_pipelines_bitwise_on_card(cuda_device):
+    """On the card: the halo plug-ins' kernels against the whole-operator
+    superkernel (stacked rows bitwise) at l in {1, 2, 9}, and the
+    runtime-depth kernel's refusal past the card's shared memory."""
+    from repro_torch.kernels import _build
+
+    for name in ("stencil2d5", "stencil3d7", "ell"):
+        top, locs, halo = _shard_case(name, cuda_device)
+        for l in (1, 2, 9):
+            layout = tfi.SlabLayout(l=l, RB=max(l + 1, 3))
+            S, idx, scal = convert.vector_phase(
+                *_triple(layout, top.n, 2 * l + 3, seed=l), cuda_device)
+            _build.reset_launches()
+            S_h, _ = _shard_phase(top, locs, halo, layout, None, S.clone(),
+                                  idx, scal)
+            kind = "ell_halo" if name == "ell" else name + "_halo"
+            assert _build.LAUNCHES[tfi.launch_key(kind, l)] == N_SHARDS
+            S_w, _ = tfactory(top)(layout)(S.clone(), idx, scal)
+            assert torch.equal(S_h, S_w)
+    op = Stencil2D5(16, 12, device=cuda_device)
+    layout = tfi.SlabLayout(l=28, RB=29)
+    S, idx, scal = convert.vector_phase(*_triple(layout, op.n, 60, 0),
+                                        cuda_device)
+    with pytest.raises(ValueError, match="232868 bytes"):
+        tfactory(op)(layout)(S, idx, scal)

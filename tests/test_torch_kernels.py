@@ -420,3 +420,50 @@ def test_decode_attention_on_card(cuda_device):
         torch.testing.assert_close(o / l, op / lp, rtol=ATT_TOL, atol=ATT_TOL)
         torch.testing.assert_close(m, mp, rtol=1e-5, atol=1e-5)
         torch.testing.assert_close(l, lp, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("s,bs,kv_len", [
+    (300, 128, 300), (300, 128, 123), (300, 128, 0), (300, 128, -1),
+    (300, 128, 305), (300, 128, 391), (256, 128, 300)])
+@pytest.mark.parametrize("shape", [(), (1, 1)])
+def test_decode_attention_tensor_kv_len_equals_int(s, bs, kv_len, shape):
+    """kv_len as a 0-d or (1, 1) integer tensor (the JAX wrappers' device
+    scalar) gives the integer path's result, bit for bit: the clamps and
+    the edge folding run as tensor selects of the same expressions."""
+    rng = np.random.default_rng(s + kv_len + 7)
+    b, h, hkv, d = 2, 4, 2, 32
+    q, k, v = (torch.tensor(_normal(rng, sh))
+               for sh in ((b, h, d), (b, s, hkv, d), (b, s, hkv, d)))
+    kt = torch.tensor(kv_len, dtype=torch.int32).reshape(shape)
+    for got, want in zip(
+            tops.decode_attention_stats(q, k, v, kt, block_s=bs),
+            tops.decode_attention_stats(q, k, v, kv_len, block_s=bs)):
+        assert torch.equal(got, want)
+    assert torch.equal(tops.decode_attention(q, k, v, kt, block_s=bs),
+                       tops.decode_attention(q, k, v, kv_len, block_s=bs))
+    with pytest.raises(ValueError, match="one integer"):
+        tops.decode_attention_stats(q, k, v, torch.tensor([1, 2]))
+
+
+@pytest.mark.cuda
+def test_decode_attention_device_kv_len_on_card(cuda_device):
+    """On the card a device kv_len is read by the kernel, with no host
+    synchronisation, and gives the integer path's bits."""
+    rng = np.random.default_rng(17)
+    b, h, hkv, d, s, bs = 2, 16, 8, 128, 3000, 512
+    q = torch.tensor(rng.standard_normal((b, h, d)), dtype=torch.float32,
+                     device=cuda_device)
+    k, v = (torch.tensor(rng.standard_normal((b, s, hkv, d)),
+                         dtype=torch.float32, device=cuda_device)
+            for _ in range(2))
+    for kv_len in (s, 2345, 0, -1, s + 5, 3072 + 7):
+        want = tops.decode_attention_stats(q, k, v, kv_len, block_s=bs)
+        kt = torch.tensor([[kv_len]], dtype=torch.int32, device=cuda_device)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            got = tops.decode_attention_stats(q, k, v, kt, block_s=bs)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        for g, w in zip(got, want):
+            assert torch.equal(g, w), kv_len

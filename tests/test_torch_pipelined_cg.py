@@ -181,8 +181,9 @@ def test_local_backend_and_refusals():
         (lambda: be.solve(op, b, l=2, recurrence="nope"), ValueError),
         (lambda: be.solve(Stencil2D5(32, 24, use_kernel=True, device="cpu"),
                           b, l=2, fused_iteration=True), ValueError),
-        (lambda: LocalBackend(reduction="staged", device="cpu"),
-         NotImplementedError),
+        # The staged ladder oracle is ported; an unknown mode is refused.
+        (lambda: LocalBackend(reduction="banana", device="cpu"),
+         ValueError),
         (lambda: get_backend("shard_map"), NotImplementedError),
     ]:
         with pytest.raises(exc):
