@@ -26,8 +26,8 @@ Phases, each printed as one JSON line; every phase raises on failure:
    other path (ragged tiles, odd and even W, the direct kernel for a W too
    wide to stage); the superkernel's ELL
    plug-in against its plain version (l in {1, 2, 3, 7, 8}); the fused
-   p(2)-CG solve (Jacobi in place of the config's block-Jacobi, which is
-   not ported), fused vs plain vector phase, an unfused solve through the
+   p(2)-CG solve with Jacobi (block-Jacobi, the config's, has no fused
+   path: phase 14), fused vs plain vector phase, an unfused solve through the
    ELL kernel against the plain operator, and the smoke-size ice sheet
    on the card against the port's CPU path;
 8. timings per kernel (CUDA events), their bounds and yardsticks, and a
@@ -67,7 +67,15 @@ Phases, each printed as one JSON line; every phase raises on failure:
    monolithic fused solve of phase 3, and 300-update unfused solves through
    the stencil kernel across stage counts (bitwise), against the
    monolithic unfused solve (within 1e-10 of the initial norm) and with an
-   fp32 wire.
+   fp32 wire;
+14. the paper's baselines and block-Jacobi (``baselines_phase``): classic
+   CG and Ghysels p-CG on laplace2d 2048^2 through ``stencil2d5`` beside
+   phase 3's p(2)-CG; block-Jacobi (100-row blocks, probed through
+   ``ell_spmv``) on icesheet3d with CG, p-CG and unfused p(2)-CG, and the
+   same three with Jacobi; classic CG with z-line block-Jacobi on the
+   icesheet3d-stencil grid through ``stencil3d7``; each solve bitwise
+   against its plain-operator solve, with its launch counts, and
+   block-Jacobi's set-up and apply times.
 
 Every kernel row of phases 8 and 9 carries its device time (profiler)
 beside its event time.
@@ -428,6 +436,46 @@ def entry_points_phase(dev, gen, n: int, k: int) -> tuple[dict, dict, dict]:
         del q, kc, vc, qg, kt, vt, q4
         torch.cuda.empty_cache()
     return launches, err, timings
+
+
+def device_split(run, names) -> dict:
+    """Wall time of ``run()`` under ``torch.profiler`` and the device time
+    of its kernels, bucketed by the first of ``names`` each kernel's name
+    holds (else "other"), with the count of kernels."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    dev_us = {k: 0.0 for k in (*names, "other")}
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    n_kernels = 0
+    for e in prof.key_averages():
+        t = getattr(e, "self_device_time_total", None)
+        if t is None:
+            t = getattr(e, "self_cuda_time_total", 0.0)
+        if not t or getattr(e, "device_type", None) != \
+                torch.autograd.DeviceType.CUDA:
+            continue
+        n_kernels += e.count
+        dev_us[next((k for k in names if k in e.key), "other")] += t
+    return {"wall_s": wall, "device_us": dev_us, "kernels": n_kernels}
+
+
+def per_iter(split: dict, iters: int) -> dict:
+    """A ``device_split`` per iteration, with the device's busy share."""
+    n = max(iters, 1)
+    busy_us = sum(split["device_us"].values())
+    return {"iterations": iters, "wall_ms_per_iter": 1e3 * split["wall_s"] / n,
+            "device_us_per_iter": {k: v / n
+                                   for k, v in split["device_us"].items()},
+            "device_kernels_per_iter": split["kernels"] / n,
+            "device_busy_share": (busy_us * 1e-6 / split["wall_s"]
+                                  if split["wall_s"] else None)}
 
 
 def history_head_tail(h_a, h_b, norm0: float) -> tuple[float, float]:
@@ -901,6 +949,181 @@ def oracle_phase(op, prec, b, sig, solve_kw, main_res) -> dict:
     return rec
 
 
+BLOCK_BOUND = 1e-10             # max |inv_block @ block - I|, sampled blocks
+ICE_BLOCK = 100                 # icesheet3d block-Jacobi block size
+
+
+def baselines_phase(dev, gpu, lap, ice, iop, lap_b, main) -> dict:
+    """The paper's baselines beside p(2)-CG, and block-Jacobi, the ice
+    sheets' own preconditioner, on the full problems:
+
+    * ``laplace2d`` 2048^2, Jacobi: classic CG and Ghysels p-CG on
+      ``Stencil2D5(use_kernel=True)`` (the ``stencil2d5`` kernel), beside
+      ``main``, the fused p(2)-CG solve of phase 3;
+    * ``icesheet3d`` (RCM-ordered ELL, ``SparseOp(use_kernel=True)``, the
+      ``ell_spmv`` kernel): block-Jacobi with ``ICE_BLOCK``-row blocks
+      (the JAX config names block-Jacobi but no size; 100 divides
+      500 000), probed through the kernel; CG, p-CG and unfused p(2)-CG
+      with it and with Jacobi;
+    * ``icesheet3d-stencil`` (``Stencil3D7(use_kernel=True)``, the
+      ``stencil3d7`` kernel): block-Jacobi with one z line (the fastest
+      index) a block, and classic CG with it.
+
+    Every solve converges to tol 1e-6 with a true relative residual below
+    10 tol, and equals, bit for bit, the same solve on the plain operator;
+    each records its updates, restarts, wall time, ms and host syncs per
+    update, and the kernel launches counted over it.  Block-Jacobi records
+    its set-up (probing, inverse), sampled blocks against the operator's
+    own (``BLOCK_BOUND``), and its apply's time against its byte bound.
+    Returns the solves' launches of each kernel."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.chebyshev import shifts_for_operator
+    from repro_torch.kernels import _build
+    from repro_torch.linalg import (BlockJacobi, JacobiPrec, Stencil2D5,
+                                    Stencil3D7, bandwidth)
+    from repro_torch.parallel.backends import LocalBackend
+
+    be = LocalBackend(device=dev)
+    failed = []
+
+    def solve(kop, pop, b, prec, method, **kw):
+        """The kernel-routed solve, timed and counted, and the plain one."""
+        kw = dict(kw, tol=TOL, unroll=16)
+        torch.cuda.synchronize()
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        r = be.solve(kop, b, method=method, prec=prec, **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(_build.LAUNCHES)
+        r_p = be.solve(pop, b, method=method, prec=prec, **kw)
+        n = max(int(r.iters), 1)
+        rec = {"converged": bool(r.converged), "iters": int(r.iters),
+               "restarts": int(r.restarts), "wall_s": wall,
+               "ms_per_iter": 1e3 * wall / n, "host_syncs": r.host_syncs,
+               "host_syncs_per_iter": r.host_syncs / n,
+               "true_rel_residual": float(torch.linalg.norm(
+                   b - pop.apply(r.x)) / torch.linalg.norm(b)),
+               "launches": launches,
+               "bitwise_equal_to_plain": bool(
+                   torch.equal(r.x, r_p.x)
+                   and torch.equal(r.res_history, r_p.res_history))}
+        if not (rec["converged"] and rec["true_rel_residual"] < 10 * TOL
+                and rec["bitwise_equal_to_plain"]):
+            failed.append(f"{method} on {type(kop).__name__}")
+        return rec
+
+    def block_jacobi(kop, block_size, blocks_of):
+        """Block-Jacobi probed through ``kop``, its set-up timed, sampled
+        blocks checked, its apply timed against its byte bound."""
+        torch.cuda.synchronize()
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        bj = BlockJacobi.from_operator(kop, block_size)
+        torch.cuda.synchronize()
+        setup_s = time.perf_counter() - t0
+        probe = dict(_build.LAUNCHES)
+        nb = kop.n // block_size
+        err = 0.0
+        eye = torch.eye(block_size, dtype=torch.float64, device=dev)
+        for k in sorted(set(np.linspace(0, nb - 1, 9).astype(int))):
+            blk = torch.tensor(blocks_of(k), device=dev)
+            err = max(err, float((bj.inv_blocks[k] @ blk - eye).abs().max()))
+        x = torch.tensor(np.random.default_rng(3).standard_normal(kop.n),
+                         device=dev)
+        nbytes = bj.inv_blocks.numel() * 8 + 2 * kop.n * 8
+        rec = {"block_size": block_size, "n_blocks": nb,
+               "inv_bytes": bj.inv_blocks.numel() * 8, "setup_s": setup_s,
+               "probe_launches": probe, "sampled_block_err": err,
+               "bound": BLOCK_BOUND,
+               "apply": timed(lambda: bj.apply(x), nbytes)}
+        if not err <= BLOCK_BOUND:
+            failed.append(f"blocks of {type(kop).__name__}")
+        return bj, rec
+
+    # ---- laplace2d 2048^2: CG and p-CG beside p(2)-CG --------------------
+    pop = Stencil2D5(lap.nx, lap.ny, device=dev)
+    kop = Stencil2D5(lap.nx, lap.ny, use_kernel=True, device=dev)
+    jac = JacobiPrec.from_operator(pop)
+    lap_rec = {"n": pop.n, "prec": "jacobi", "maxit": 20000,
+               "plcg_l2_fused_main_solve": {
+                   k: main[k] for k in ("iters", "restarts", "wall_s",
+                                        "ms_per_iter", "host_syncs_per_iter",
+                                        "true_rel_residual")}}
+    for method in ("cg", "pcg"):
+        lap_rec[method] = solve(kop, pop, lap_b, jac, method, maxit=20000)
+        # Where an update goes: 96 updates (six whole windows) under the
+        # profiler.
+        split = device_split(lambda: be.solve(
+            kop, lap_b, method=method, prec=jac, tol=1e-30, maxit=96,
+            unroll=16), ("stencil2d5",))
+        lap_rec[method]["split_96_updates"] = per_iter(split, 96)
+    emit({"phase": "baselines", "problem": lap.name, "gpu": gpu, **lap_rec})
+
+    # ---- icesheet3d: the three methods, block-Jacobi and Jacobi ---------
+    ikop = dataclasses.replace(iop, use_kernel=True)
+    cols, vals = iop.cols.cpu().numpy(), iop.vals.cpu().numpy()
+
+    def ell_block(k):
+        lo = k * ICE_BLOCK
+        blk = np.zeros((ICE_BLOCK, ICE_BLOCK))
+        c, v = cols[lo:lo + ICE_BLOCK], vals[lo:lo + ICE_BLOCK]
+        keep = (v != 0) & (c >= lo) & (c < lo + ICE_BLOCK)
+        rows = np.nonzero(keep)[0]
+        np.add.at(blk, (rows, c[keep] - lo), v[keep])
+        return blk
+
+    bj, bj_rec = block_jacobi(ikop, ICE_BLOCK, ell_block)
+    bj_rec.update(reach=bandwidth(iop), n_colors=min(
+        -(-bandwidth(iop) // ICE_BLOCK) + 2, iop.n // ICE_BLOCK))
+    ib = torch.tensor(np.random.default_rng(0).standard_normal(iop.n),
+                      device=dev)
+    ice_rec = {"n": iop.n, "blockjacobi": bj_rec}
+    for name, prec in (("blockjacobi", bj),
+                       ("jacobi", JacobiPrec.from_operator(iop))):
+        sig = shifts_for_operator(iop, 2, prec=prec)
+        ice_rec[name + "_solves"] = {
+            "cg": solve(ikop, iop, ib, prec, "cg", maxit=2000),
+            "pcg": solve(ikop, iop, ib, prec, "pcg", maxit=2000),
+            "plcg_l2_unfused": solve(ikop, iop, ib, prec, "plcg", l=2,
+                                     sigmas=sig, maxit=2000)}
+    emit({"phase": "baselines", "problem": "icesheet3d", "gpu": gpu,
+          **ice_rec})
+    del bj, ikop
+
+    # ---- icesheet3d-stencil: classic CG with z-line block-Jacobi --------
+    pop3 = Stencil3D7(ice.nx, ice.ny, ice.nz, eps_z=ice.eps_z, device=dev)
+    kop3 = dataclasses.replace(pop3, use_kernel=True)
+    line = (np.diag(np.full(ice.nz, 4.0 + 2.0 * ice.eps_z))
+            - ice.eps_z * (np.eye(ice.nz, k=1) + np.eye(ice.nz, k=-1)))
+    bj3, bj3_rec = block_jacobi(kop3, ice.nz, lambda k: line)
+    bj3_rec.update(block_index="z (the fastest index: one grid line a block)",
+                   reach=ice.nz, n_colors=3)
+    b3 = torch.tensor(np.random.default_rng(1).standard_normal(pop3.n),
+                      device=dev)
+    st_rec = {"n": pop3.n, "blockjacobi": bj3_rec,
+              "cg": solve(kop3, pop3, b3, bj3, "cg", maxit=20000)}
+    emit({"phase": "baselines", "problem": ice.name, "gpu": gpu, **st_rec})
+    del bj3
+    torch.cuda.empty_cache()
+
+    launches = {
+        "stencil2d5": sum(lap_rec[m]["launches"].get("stencil2d5", 0)
+                          for m in ("cg", "pcg")),
+        "ell_spmv": sum(r["launches"].get("ell_spmv", 0)
+                        for key in ("blockjacobi_solves", "jacobi_solves")
+                        for r in ice_rec[key].values()),
+        "stencil3d7": st_rec["cg"]["launches"].get("stencil3d7", 0)}
+    for k, v in launches.items():
+        if v == 0:
+            failed.append(f"{k} never launched")
+    if failed:
+        raise AssertionError(f"baselines failed: {failed}")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -1046,7 +1269,7 @@ def main() -> int:
     # p(2)-CG meets square-root breakdowns on this problem (the JAX package
     # does too, already at 512^2 and 1024^2); each restarts the cycle and
     # slows convergence, so the run gets the budget to finish: on an H100,
-    # 16 restarts and ~11 700 updates (classic CG: 4 834).
+    # 16 restarts and ~11 700 updates (classic CG: 4 834, phase 14).
     solve_kw = dict(l=lap.l, tol=TOL, maxit=20000, max_restarts=50,
                     sigmas=sig, fused_iteration=True, unroll=16)
     torch.cuda.synchronize()
@@ -1089,8 +1312,8 @@ def main() -> int:
     del r_f, r_p
 
     # ---- 5. standalone stencil kernels on a solve ------------------------
-    # The icesheet3d-stencil config names block-Jacobi, which is not ported
-    # yet; pointwise Jacobi stands in for it here.
+    # Jacobi on both stencils here; phase 14 runs the icesheet3d-stencil
+    # config's block-Jacobi.
     _build.reset_launches()
     stencil_runs = {}
     for name, kop, pop in [
@@ -1118,8 +1341,8 @@ def main() -> int:
                                  "launched the kernel")
         del r_k, r_p
     stencil_launches = dict(_build.LAUNCHES)
-    emit({"phase": "stencil_solves", "prec": "jacobi (stands in for "
-          "block-Jacobi)", "runs": stencil_runs})
+    emit({"phase": "stencil_solves", "prec": "jacobi",
+          "runs": stencil_runs})
 
     # ---- 6. small reference: card vs the port's CPU path -----------------
     sm = laplace2d.smoke_config()
@@ -1227,7 +1450,7 @@ def main() -> int:
     true_rel = float(torch.linalg.norm(ib - iop.apply(ires.x))
                      / torch.linalg.norm(ib))
     emit({"phase": "icesheet_solve", "problem": ice_prob.name, "n": iop.n,
-          "l": 2, "prec": "jacobi (stands in for block-Jacobi)",
+          "l": 2, "prec": "jacobi (the fused path)",
           "converged": bool(ires.converged), "iters": int(ires.iters),
           "restarts": int(ires.restarts), "vector_phases": n_iter,
           "wall_s": wall, "ms_per_iter": 1e3 * wall / max(n_iter, 1),
@@ -1300,42 +1523,13 @@ def main() -> int:
     # Where one iteration of the main solve goes: device time of the
     # superkernel versus everything else, over a short profiled solve,
     # taken before the timings below and their profiler windows.
-    from torch.profiler import ProfilerActivity, profile
-
     prof_kw = dict(solve_kw, maxit=100, tol=1e-30)
     be.solve(op, b, prec=prec, **prof_kw)
-    torch.cuda.synchronize()
     _build.reset_launches()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        be.solve(op, b, prec=prec, **prof_kw)
-        torch.cuda.synchronize()
-        prof_wall = time.perf_counter() - t0
-    prof_iters = _build.LAUNCHES["fused_iter"]
-    dev_us = {"fused_iter_kernel": 0.0, "copy_row": 0.0,
-              "sum_partials": 0.0, "other": 0.0}
-    n_kernels = 0
-    for e in prof.key_averages():
-        t = getattr(e, "self_device_time_total", None)
-        if t is None:
-            t = getattr(e, "self_cuda_time_total", 0.0)
-        if not t or getattr(e, "device_type", None) != \
-                torch.autograd.DeviceType.CUDA:
-            continue
-        n_kernels += e.count
-        key = next((k for k in dev_us if k != "other" and k in e.key),
-                   "other")
-        dev_us[key] += t
-    busy_us = sum(dev_us.values())
-    emit({"phase": "iteration_split", "iterations": prof_iters,
-          "wall_ms_per_iter": 1e3 * prof_wall / max(prof_iters, 1),
-          "device_us_per_iter": {k: v / max(prof_iters, 1)
-                                 for k, v in dev_us.items()},
-          "device_kernels_per_iter": n_kernels / max(prof_iters, 1),
-          "device_busy_share": (busy_us * 1e-6 / prof_wall
-                                if prof_wall else None),
-          "gpu": gpu})
+    split = device_split(lambda: be.solve(op, b, prec=prec, **prof_kw),
+                         ("fused_iter_kernel", "copy_row", "sum_partials"))
+    emit({"phase": "iteration_split",
+          **per_iter(split, _build.LAUNCHES["fused_iter"]), "gpu": gpu})
 
     timings = {}
     g2 = randn(lap.nx, lap.ny)
@@ -1472,6 +1666,10 @@ def main() -> int:
     # ---- 13. the ladder oracle ------------------------------------------
     oracle_phase(op, prec, b, sig, solve_kw, res)
 
+    # ---- 14. the paper's baselines and block-Jacobi ----------------------
+    del res
+    base_launches = baselines_phase(dev, gpu, lap, ice, iop, b, main)
+
     # ---- contract lines --------------------------------------------------
     src_dir = "src/repro_torch/kernels/csrc/"
     kernels = []
@@ -1518,7 +1716,8 @@ def main() -> int:
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],
             "device_ms": t.get("device_ms"),
-            "library_device_ms": t.get("library_device_ms")})
+            "library_device_ms": t.get("library_device_ms"),
+            "launches_baselines": base_launches.get(name, 0)})
     for k in kernels:
         if k["launches"] == 0:
             raise AssertionError(f"{k['name']} was never launched on its path")

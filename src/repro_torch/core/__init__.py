@@ -1,23 +1,21 @@
-from repro_torch.core import pipelined_cg
+from repro_torch.core import classic_cg, ghysels_pcg, pipelined_cg
 from repro_torch.core.chebyshev import (chebyshev_shifts, power_method,
                                         shifts_for_operator)
 from repro_torch.core.types import SolveResult, SolverOps
 
-
-def _not_ported(name: str):
-    def solve(ops, b, kw):
-        raise NotImplementedError(
-            f"method {name!r} is not ported yet (ROADMAP.md, queue 1 "
-            "item 3: classic CG and Ghysels p-CG)")
-    return solve
-
+SOLVERS = {
+    "cg": classic_cg.solve,
+    "pcg": ghysels_pcg.solve,          # Ghysels p-CG (~p(1)-CG)
+    "pipelcg": pipelined_cg.solve,     # deep pipelined p(l)-CG (Alg. 1)
+}
 
 # kwargs-dict dispatch shared by the backends, as repro.core.METHODS.
 METHODS = {
-    "cg": _not_ported("cg"),
-    "pcg": _not_ported("pcg"),
+    "cg": lambda ops, b, kw: classic_cg.solve(ops, b, **kw),
+    "pcg": lambda ops, b, kw: ghysels_pcg.solve(ops, b, **kw),
     "plcg": lambda ops, b, kw: pipelined_cg.solve(ops, b, **kw),
 }
 
-__all__ = ["SolveResult", "SolverOps", "pipelined_cg", "chebyshev_shifts",
-           "power_method", "shifts_for_operator", "METHODS"]
+__all__ = ["SolveResult", "SolverOps", "classic_cg", "ghysels_pcg",
+           "pipelined_cg", "chebyshev_shifts", "power_method",
+           "shifts_for_operator", "SOLVERS", "METHODS"]

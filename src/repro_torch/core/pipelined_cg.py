@@ -39,7 +39,7 @@ from typing import Callable, NamedTuple
 
 import torch
 
-from repro_torch.core.types import SolveResult, SolverOps, dot1
+from repro_torch.core.types import SolveResult, SolverOps, dot1, host_loop
 from repro_torch.device import as_rhs, as_tensor
 from repro_torch.kernels.fused_iter import (SlabLayout, host_idx, idx_layout,
                                             scal_layout)
@@ -80,7 +80,6 @@ class PlcgProgram(NamedTuple):
     interrupt: Callable[[_State], _State]   # restart / replacement
     cond: Callable[[_State], torch.Tensor]
     needs_interrupt: Callable[[_State], torch.Tensor]
-    active: Callable[[_State], torch.Tensor]
     finish: Callable[..., SolveResult]
 
 
@@ -382,9 +381,6 @@ def build(
         return ((~st.converged) & (st.tot < tot_max) & (st.upd < maxit)
                 & (st.restarts <= max_restarts))
 
-    def active(st: _State) -> torch.Tensor:
-        return cond(st) & ~needs_interrupt(st)
-
     def init(x0: torch.Tensor) -> _State:
         cyc0 = init_cycle(x0)
         norm0 = cyc0.norm0_cycle
@@ -406,7 +402,7 @@ def build(
 
     return PlcgProgram(init=init, iteration=iteration, interrupt=do_restart,
                        cond=cond, needs_interrupt=needs_interrupt,
-                       active=active, finish=finish)
+                       finish=finish)
 
 
 def solve(
@@ -438,8 +434,6 @@ def solve(
         raise NotImplementedError(
             "checkpointed solves are not ported yet (ROADMAP.md, queue 1 "
             "item 6)")
-    if unroll < 1:
-        raise ValueError("unroll must be >= 1")
     b = as_rhs(b, device)
     prog = build(ops, b, l, tol=tol, maxit=maxit, sigmas=sigmas,
                  max_restarts=max_restarts, replace_every=replace_every,
@@ -447,16 +441,6 @@ def solve(
                  recurrence=recurrence, governor=governor)
     st = prog.init(torch.zeros_like(b) if x0 is None
                    else as_tensor(x0, b.device, b.dtype))
-    syncs = 0
-    while True:
-        keep, due = torch.stack([prog.cond(st),
-                                 prog.needs_interrupt(st)]).tolist()
-        syncs += 1
-        if not keep:
-            break
-        if due:
-            st = prog.interrupt(st)
-            continue
-        for _ in range(unroll):
-            st = prog.iteration(st, prog.active(st))
+    st, syncs = host_loop(st, prog.cond, prog.iteration, unroll,
+                          prog.needs_interrupt, prog.interrupt)
     return prog.finish(st, syncs)

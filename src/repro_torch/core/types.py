@@ -125,3 +125,31 @@ def dot1(ops: SolverOps, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Single global dot through the fused-block path, started and
     immediately waited (a blocking reduction)."""
     return ops.wait(ops.start(a[None, :], b))[0].to(a.dtype)
+
+
+def host_loop(st, cond, step, unroll: int, needs_interrupt=None,
+              interrupt=None):
+    """The solvers' host loop: ``unroll`` calls of ``step(st, active)``
+    between host reads of ``cond`` (and of ``needs_interrupt``, whose
+    ``interrupt`` runs when due), ``active`` being ``cond`` and not a due
+    interrupt, evaluated on the device before each step.  Returns the
+    final state and the number of host reads (synchronisations)."""
+    if unroll < 1:
+        raise ValueError("unroll must be >= 1")
+    syncs = 0
+    while True:
+        syncs += 1
+        if needs_interrupt is None:
+            keep, due = bool(cond(st)), False
+        else:
+            keep, due = torch.stack([cond(st), needs_interrupt(st)]).tolist()
+        if not keep:
+            return st, syncs
+        if due:
+            st = interrupt(st)
+            continue
+        for _ in range(unroll):
+            active = cond(st)
+            if needs_interrupt is not None:
+                active = active & ~needs_interrupt(st)
+            st = step(st, active)

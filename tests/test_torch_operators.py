@@ -162,8 +162,11 @@ def test_preconditioners():
         np.asarray(jj.apply(jnp.asarray(x))))
     xt = torch.as_tensor(x)
     assert tprec.IdentityPrec().apply(xt) is xt
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tprec.BlockJacobi.from_operator(top, 4)
+    # Block-Jacobi (one z line a block) as the JAX package probes and
+    # inverts it, within 1e-12 of the largest entry (LAPACK rounding).
+    tb = tprec.BlockJacobi.from_operator(top, 4).inv_blocks.numpy()
+    jb = np.asarray(jprec.BlockJacobi.from_operator(jop, 4).inv_blocks)
+    assert np.abs(tb - jb).max() <= 1e-12 * np.abs(jb).max()
 
 
 @pytest.mark.parametrize("name", OPS)

@@ -171,7 +171,8 @@ def test_local_backend_and_refusals():
     assert bool(res.converged) and float(rel) < 1e-5
     assert res.x.device.type == "cpu" and res.x.shape == (op.n,)
     for bad, exc in [
-        (lambda: be.solve(op, b, method="cg", l=2), NotImplementedError),
+        (lambda: be.solve(op, b, method="pcg", checkpoint=object()),
+         NotImplementedError),
         (lambda: be.solve(op, b, method="nope", l=2), ValueError),
         (lambda: be.solve(op, b, l=2, governor=object()),
          NotImplementedError),

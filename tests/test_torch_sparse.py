@@ -195,8 +195,13 @@ def test_refusals():
     with pytest.raises(ValueError, match="fused_iter_factory"):
         tpc.solve(SolverOps.local(kop, JacobiPrec.from_operator(op)), b, 2,
                   fused_iteration=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        BlockJacobi.from_operator(op, 8)
+    # Block-Jacobi is ported; a block size that does not divide n, and
+    # the fused path with it (none, as in the JAX package), are refused.
+    with pytest.raises(ValueError, match="does not divide"):
+        BlockJacobi.from_operator(op, 7)
+    with pytest.raises(ValueError, match="fused_iter_factory"):
+        tpc.solve(SolverOps.local(op, BlockJacobi.from_operator(op, 8)), b, 2,
+                  fused_iteration=True)
     with pytest.raises(ValueError, match="device"):
         meta = torch.empty((4, 2), dtype=torch.int32, device="meta")
         tel.ell_spmv(torch.empty(4, device="meta"), meta,
