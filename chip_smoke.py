@@ -77,6 +77,20 @@ Phases, each printed as one JSON line; every phase raises on failure:
    against its plain-operator solve, with its launch counts, and
    block-Jacobi's set-up and apply times.
 
+15. p(l)-CG over real ranks (``distributed_phase``): ``launch_fabric``
+   starts the ranks, each a ``MultiprocessBackend``.  A world of one rank
+   over NCCL solves laplace2d with phase 3's settings (its updates and
+   restarts) and icesheet3d; four ranks over gloo share the card (NCCL
+   refuses two ranks on one GPU; payloads cross pinned host buffers):
+   200 laplace2d updates staged (2 stages) bitwise against the fused
+   ranks' one-process reference (``rank_oracle_ops``) and monolithic
+   within ORACLE_HIST, icesheet3d staged and
+   monolithic to convergence, its ``use_kernel`` operator through
+   ``ell_spmv``, and the split-KV decode merge at ``decode_32k``'s heads
+   against the single-process merge.  Every fused run launches its halo
+   plug-in each vector phase on every rank; each run reports its wire,
+   ms per iteration, host syncs and halo and hop bytes per iteration.
+
 Every kernel row of phases 8 and 9 carries its device time (profiler)
 beside its event time.
 
@@ -1124,6 +1138,277 @@ def baselines_phase(dev, gpu, lap, ice, iop, lap_b, main) -> dict:
     return launches
 
 
+N_RANKS = 4                     # gloo ranks sharing the one card
+WIRE_TAIL = 1e-8                # ELL: monolithic vs staged, whole history
+
+
+def distributed_phase(lap_op, lap_prec, lap_b, solve_kw, main, main_digest,
+                      iop, iprec, ib, ice_kw, ice_main) -> dict:
+    """p(l)-CG over real ranks through ``MultiprocessBackend``: ranks
+    started by ``launch_fabric`` (``python -m repro_torch.parallel.worker``),
+    each building the configs' operators itself.
+
+    * World of 1 over NCCL: ``laplace2d`` with ``main_solve``'s settings
+      (monolithic: one async ``all_reduce`` a dot block), against
+      ``main_solve``'s updates and restarts; ``icesheet3d``, fused.
+    * 4 ranks over gloo sharing the card (``pg_backend="gloo"``: NCCL
+      refuses two ranks on one GPU), every payload through pinned host
+      buffers: ``laplace2d`` 200 updates (tol 1e-30) staged with 2 stages,
+      bitwise against the fused ranks' reference in one process
+      (``parallel.distributed.rank_oracle_ops``, 4 virtual shards), and
+      monolithic within ORACLE_HIST of it; ``icesheet3d`` (RCM-ordered)
+      the same to convergence (monolithic: head ORACLE_HIST, all
+      WIRE_TAIL); its ``use_kernel`` operator unfused through ``ell_spmv``,
+      bitwise against ``LocalBackend(reduction="staged",
+      virtual_shards=4)``; the split-KV decode merge at
+      ``decode_32k``'s heads (each rank 8 192 of the 32 768 positions)
+      against the single-process ``merge_decode_shards`` within 1e-6.
+    * Every fused run launches its halo plug-in once a vector phase on
+      every rank (no unfused route where a fused one exists).
+
+    Returns the ranks' kernel launches summed, by kernel."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from repro_torch.core import METHODS
+    from repro_torch.kernels import ops as kops
+    from repro_torch.models.attention import merge_decode_shards
+    from repro_torch.parallel.backends import LocalBackend
+    from repro_torch.parallel.distributed import rank_oracle_ops
+    from repro_torch.parallel.fabric import launch_fabric
+    from repro_torch.parallel.reduction import StagedConfig
+    from repro_torch.parallel.worker import decode_split
+
+    tmp = tempfile.mkdtemp(prefix="chip-smoke-ranks-")
+    lap_npz, ice_npz = os.path.join(tmp, "lap.npz"), os.path.join(tmp,
+                                                                 "ice.npz")
+    np.savez(lap_npz, b=lap_b.cpu().numpy(),
+             sig=solve_kw["sigmas"].cpu().numpy())
+    np.savez(ice_npz, b=ib.cpu().numpy(), sig=ice_kw["sigmas"].cpu().numpy())
+    lap_kw = {k: v for k, v in solve_kw.items() if k != "sigmas"}
+    ice_solver = {k: v for k, v in ice_kw.items() if k != "sigmas"}
+    short = dict(lap_kw, maxit=200, tol=1e-30)
+
+    def task(name, cfg, npz, solver, red="monolithic", use_kernel=None):
+        op_spec = {"config": cfg}
+        if use_kernel is not None:
+            op_spec["use_kernel"] = use_kernel
+        return {"kind": "solve", "name": name, "operator": op_spec,
+                "rhs": {"npz": npz, "key": "b"},
+                "sigmas": {"npz": npz, "key": "sig"}, "method": "plcg",
+                "reduction": red, "stages": 2,
+                "solver": solver}
+
+    def run_group(tag, p, pg, tasks):
+        out = os.path.join(tmp, tag)
+        os.makedirs(out)
+        spec = os.path.join(out, "spec.json")
+        with open(spec, "w") as f:
+            json.dump({"backend": {"device": "cuda", "pg_backend": pg},
+                       "out_dir": out, "threads": 2, "tasks": tasks}, f)
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        launch_fabric(lambda master, k: [sys.executable, "-m",
+                                         "repro_torch.parallel.worker", spec],
+                      p, env=dict(os.environ,
+                                  PYTHONPATH=os.path.join(ROOT, "src")),
+                      cwd=ROOT, timeout_s=400, build_kernels=True)
+        group_s = time.perf_counter() - t0
+        got = {}
+        for t in tasks:
+            recs = []
+            for r in range(p):
+                with open(os.path.join(out, f"{t['name']}.rank{r}.json")) as f:
+                    recs.append(json.load(f))
+            got[t["name"]] = (recs, dict(np.load(os.path.join(
+                out, t["name"] + ".npz"))))
+        return got, group_s
+
+    def summary(recs, halo_key=None):
+        r0 = recs[0]
+        wc = r0["wire_counts"]
+        phases = r0["vector_phases"] or r0["iters"]
+        rec = {"wire": r0["describe"], "world": r0["world"],
+               "converged": r0["converged"], "iters": r0["iters"],
+               "restarts": r0["restarts"],
+               "wall_s": max(r["wall_s"] for r in recs),
+               "vector_phases": r0["vector_phases"],
+               "ms_per_iter": 1e3 * max(r["wall_s"] for r in recs)
+               / max(phases, 1),
+               "host_syncs_per_iter": (r0["host_syncs"]
+                                       + wc["staging_host_syncs"])
+               / max(phases, 1),
+               "halo_bytes_per_iter": wc["bytes_sent"].get("halo", 0)
+               / max(phases, 1),
+               "hop_bytes_per_iter": wc["bytes_sent"].get("hop", 0)
+               / max(phases, 1),
+               "all_reduce_bytes_per_iter":
+                   wc["bytes_sent"].get("all_reduce", 0) / max(phases, 1),
+               "setup_s": max(r["setup_s"] for r in recs),
+               "ranks_agree_bitwise": len({(r["x_sha256"],
+                                            r["history_sha256"])
+                                           for r in recs}) == 1,
+               "true_rel_residual": r0.get("true_rel_residual"),
+               "launches_by_rank": [r["launches"] for r in recs]}
+        if halo_key is not None:
+            rec["halo_plugin_every_phase"] = all(
+                r["launches"].get(halo_key, 0) == r["vector_phases"] > 0
+                and set(r["launches"]) == {halo_key} for r in recs)
+        return rec
+
+    def same(arr, res):
+        return bool(np.array_equal(arr["x"], res.x.cpu().numpy())
+                    and np.array_equal(arr["res_history"],
+                                       res.res_history.cpu().numpy()))
+
+    dtask = dict(kind="decode_merge", name="decode", seed=11, block_s=512,
+                 B=16, H=16, Hkv=8, D=128, S=32768, kv_len=30001)
+    try:
+        # ---- a world of one rank over NCCL ----------------------------
+        w1, w1_s = run_group("w1", 1, "nccl", [
+            task("lap", "laplace2d", lap_npz, lap_kw),
+            task("ice", "icesheet3d", ice_npz, ice_solver)])
+        lap1 = summary(w1["lap"][0], "fused_iter_halo")
+        lap1["bitwise_vs_main_solve"] = (
+            w1["lap"][0][0]["x_sha256"], w1["lap"][0][0]["history_sha256"]
+        ) == main_digest
+        lap1["main_solve"] = {k: main[k] for k in
+                              ("iters", "restarts", "ms_per_iter",
+                               "host_syncs_per_iter", "wall_s")}
+        ice1 = summary(w1["ice"][0], "fused_iter_ell_halo")
+        ice1["icesheet_solve"] = ice_main
+
+        # ---- 4 ranks over gloo on the one card ------------------------
+        g4, g4_s = run_group("g4", N_RANKS, "gloo", [
+            task("lap_staged", "laplace2d", lap_npz, short, "staged"),
+            task("lap_mono", "laplace2d", lap_npz, short),
+            task("ice_staged", "icesheet3d", ice_npz, ice_solver, "staged"),
+            task("ice_mono", "icesheet3d", ice_npz, ice_solver),
+            task("ice_kernel", "icesheet3d", ice_npz,
+                 dict(ice_solver, fused_iteration=False), "staged", True),
+            dtask])
+
+        ref_s = {}
+
+        def oracle(op_, b_, prec_, kw, name):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if kw.get("fused_iteration", True):
+                res = METHODS["plcg"](rank_oracle_ops(
+                    op_, prec_, StagedConfig(N_RANKS, stages=2)), b_, kw)
+            else:
+                res = LocalBackend(reduction="staged", virtual_shards=N_RANKS,
+                                   reduction_stages=2).solve(
+                    op_, b_, prec=prec_, **kw)
+            torch.cuda.synchronize()
+            ref_s[name] = time.perf_counter() - t0
+            return res
+
+        recs = {k: summary(v[0], {"lap_staged": "fused_iter_halo",
+                                  "lap_mono": "fused_iter_halo",
+                                  "ice_staged": "fused_iter_ell_halo",
+                                  "ice_mono": "fused_iter_ell_halo"}.get(k))
+                for k, v in g4.items() if k != "decode"}
+        o_lap = oracle(lap_op, lap_b, lap_prec, dict(solve_kw, maxit=200,
+                                                    tol=1e-30), "lap_staged")
+        recs["lap_staged"]["bitwise_vs_oracle"] = same(g4["lap_staged"][1],
+                                                       o_lap)
+        head, tail = history_head_tail(g4["lap_mono"][1]["res_history"],
+                                       o_lap.res_history.cpu().numpy(),
+                                       float(o_lap.norm0))
+        recs["lap_mono"]["history_vs_staged"] = {"head_max": head,
+                                                 "max": tail}
+        del o_lap
+        o_ice = oracle(iop, ib, iprec, ice_kw, "ice_staged")
+        recs["ice_staged"]["bitwise_vs_oracle"] = same(g4["ice_staged"][1],
+                                                       o_ice)
+        head, tail = history_head_tail(g4["ice_mono"][1]["res_history"],
+                                       o_ice.res_history.cpu().numpy(),
+                                       float(o_ice.norm0))
+        recs["ice_mono"]["history_vs_staged"] = {"head_max": head,
+                                                 "max": tail}
+        kop = dataclasses.replace(iop, use_kernel=True)
+        o_k = oracle(kop, ib, iprec, dict(ice_kw, fused_iteration=False),
+                     "ice_kernel")
+        recs["ice_kernel"]["bitwise_vs_oracle"] = same(g4["ice_kernel"][1],
+                                                       o_k)
+        recs["ice_kernel"]["ell_spmv_by_rank"] = [
+            r["launches"].get("ell_spmv", 0) for r in g4["ice_kernel"][0]]
+        del o_ice, o_k
+        for name, sec in ref_s.items():
+            phases = recs[name]["vector_phases"] or recs[name]["iters"]
+            recs[name]["reference_in_one_process"] = {
+                "wall_s": sec, "ms_per_iter": 1e3 * sec / max(phases, 1)}
+
+        drecs, darr = g4["decode"]
+        splits = [decode_split(r, N_RANKS, dtask, torch.device("cuda"))
+                  for r in range(N_RANKS)]
+        stats = [kops.decode_attention_stats(q, k, v, kv, dtask["block_s"])
+                 for q, k, v, kv in splits]
+        merged = merge_decode_shards(*(torch.stack(t) for t in zip(*stats)))
+        dec_err = float(np.abs(darr["out"] - merged.reshape(
+            splits[0][0].shape).cpu().numpy()).max())
+        decode = {"shape": {k: dtask[k] for k in ("B", "H", "Hkv", "D",
+                                                  "S", "kv_len")},
+                  "max_abs_diff_vs_single_process_merge": dec_err,
+                  "bound": 1e-6, "wall_s": max(r["wall_s"] for r in drecs),
+                  "all_reduce_messages": drecs[0]["wire_counts"]["messages"],
+                  "launches_by_rank": [r["launches"] for r in drecs]}
+        del splits, stats, merged
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    rec = {"phase": "distributed_solve",
+           "world1_nccl": {"group_s": w1_s, "laplace2d": lap1,
+                           "icesheet3d": ice1},
+           "gloo_4_ranks_one_card": {"group_s": g4_s, **recs,
+                                     "decode_merge": decode},
+           "bounds": {"mono_vs_staged_history": ORACLE_HIST,
+                      "ell_mono_vs_staged_all": WIRE_TAIL,
+                      "decode": 1e-6}}
+    emit(rec)
+    fused = [lap1, ice1] + [recs[k] for k in ("lap_staged", "lap_mono",
+                                              "ice_staged", "ice_mono")]
+    checks = {
+        "world1_laplace_converged": lap1["converged"]
+        and lap1["true_rel_residual"] < 10 * TOL,
+        "world1_laplace_as_main_solve": lap1["iters"] == main["iters"]
+        and lap1["restarts"] == main["restarts"],
+        "world1_icesheet_converged": ice1["converged"]
+        and ice1["true_rel_residual"] < 10 * TOL,
+        "halo_plugins_every_phase": all(r["halo_plugin_every_phase"]
+                                        for r in fused),
+        "ranks_agree": all(r["ranks_agree_bitwise"]
+                           for r in recs.values()),
+        "staged_bitwise": all(recs[k]["bitwise_vs_oracle"] for k in
+                              ("lap_staged", "ice_staged", "ice_kernel")),
+        "lap_mono_close": recs["lap_mono"]["history_vs_staged"]["max"]
+        <= ORACLE_HIST,
+        "ice_converged": recs["ice_staged"]["converged"]
+        and recs["ice_mono"]["converged"]
+        and abs(recs["ice_mono"]["iters"] - recs["ice_staged"]["iters"]) <= 2,
+        "ice_mono_close": recs["ice_mono"]["history_vs_staged"]["head_max"]
+        <= ORACLE_HIST and recs["ice_mono"]["history_vs_staged"]["max"]
+        <= WIRE_TAIL,
+        "ell_spmv_every_rank": min(recs["ice_kernel"]["ell_spmv_by_rank"])
+        > 0,
+        "decode_merge": dec_err <= 1e-6,
+    }
+    emit({"phase": "distributed_checks", **checks})
+    if not all(checks.values()):
+        raise AssertionError("distributed solve failed: " + ", ".join(
+            k for k, v in checks.items() if not v))
+    total: dict = {}
+    for group in (w1, g4):
+        for recs_, _ in group.values():
+            for r in recs_:
+                for k, v in r["launches"].items():
+                    total[k] = total.get(k, 0) + v
+    return total
+
+
 def main() -> int:
     import torch
 
@@ -1149,6 +1434,7 @@ def main() -> int:
                                     Stencil3D7, Stencil3D27,
                                     laplacian_2d_spectrum)
     from repro_torch.parallel.backends import LocalBackend
+    from repro_torch.parallel.worker import digest
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1291,6 +1577,7 @@ def main() -> int:
             "host_syncs_per_iter": res.host_syncs / max(n_iter, 1),
             "true_rel_residual": true_rel, "launches": main_launches}
     emit(main)
+    main_digest = (digest(res.x), digest(res.res_history))
     if not bool(res.converged) or not true_rel < 10 * TOL:
         raise AssertionError("main solve did not converge")
     if n_iter == 0:
@@ -1457,6 +1744,8 @@ def main() -> int:
           "host_syncs": ires.host_syncs,
           "host_syncs_per_iter": ires.host_syncs / max(n_iter, 1),
           "true_rel_residual": true_rel, "launches": ice_launches})
+    ice_main = {"iters": int(ires.iters), "restarts": int(ires.restarts),
+                "ms_per_iter": 1e3 * wall / max(n_iter, 1)}
     if not bool(ires.converged) or not true_rel < 10 * TOL:
         raise AssertionError("icesheet solve did not converge")
     if n_iter == 0:
@@ -1670,6 +1959,11 @@ def main() -> int:
     del res
     base_launches = baselines_phase(dev, gpu, lap, ice, iop, b, main)
 
+    # ---- 15. p(l)-CG over real ranks -------------------------------------
+    wire_launches = distributed_phase(op, prec, b, solve_kw, main,
+                                      main_digest, iop, iprec, ib, ice_kw,
+                                      ice_main)
+
     # ---- contract lines --------------------------------------------------
     src_dir = "src/repro_torch/kernels/csrc/"
     kernels = []
@@ -1717,7 +2011,8 @@ def main() -> int:
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],
             "device_ms": t.get("device_ms"),
             "library_device_ms": t.get("library_device_ms"),
-            "launches_baselines": base_launches.get(name, 0)})
+            "launches_baselines": base_launches.get(name, 0),
+            "launches_ranks": wire_launches.get(name, 0)})
     for k in kernels:
         if k["launches"] == 0:
             raise AssertionError(f"{k['name']} was never launched on its path")

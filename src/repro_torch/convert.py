@@ -12,7 +12,11 @@ packages solve the identical system from the identical shifts:
 * Chebyshev ``sigmas`` (:func:`sigmas`);
 * a vector-phase ``(S, idx, scal)`` triple (:func:`vector_phase`);
 * a ``PartitionPlan``'s fields (:func:`partition_plan`), so both packages
-  apply one plan.
+  apply one plan;
+* the arrays of the JAX package's ``partitioned_solver_ops``
+  (``{"op": ..., "prec": ...}``, as numpy) as the port's per-rank tensors
+  (:func:`partitioned_arrays`), so both packages solve one sharded
+  problem.
 """
 
 from __future__ import annotations
@@ -127,3 +131,25 @@ def partition_plan(device=None, **fields) -> PartitionPlan:
         send_dn=t("send_dn", torch.int32),
         perm=np.asarray(fields["perm"], dtype=np.int64),
         band=int(fields["band"]))
+
+
+def partitioned_arrays(arrays: dict, n_shards: int, device=None) -> list:
+    """Rank r's arrays for each of ``n_shards`` ranks, from the arrays of
+    the JAX package's ``partitioned_solver_ops`` (a nested dict of numpy
+    arrays): each array's leading axis split into ``n_shards`` equal
+    blocks, as its ``P(axis)`` in-spec splits it (a plan's (P, ...) arrays
+    give (1, ...) blocks); integer arrays as int32, floats keeping their
+    dtype, on ``device``."""
+    dev = resolve_device(device)
+
+    def block(a, r):
+        if isinstance(a, dict):
+            return {k: block(v, r) for k, v in a.items()}
+        a = np.asarray(a)
+        m = a.shape[0] // n_shards
+        t = torch.from_numpy(np.array(a[r * m:(r + 1) * m]))
+        if not t.is_floating_point():
+            t = t.to(torch.int32)
+        return t.to(dev)
+
+    return [block(arrays, r) for r in range(n_shards)]

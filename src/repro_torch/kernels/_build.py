@@ -5,7 +5,10 @@ library with a plain C interface (no PyTorch headers, so a build takes
 seconds), loaded with ``ctypes``.  All sources are compiled at first use,
 in parallel (one ``nvcc`` per source), into ``build/<hash>/`` beside this
 module, where ``<hash>`` covers every source, header and flag, so an edit
-rebuilds and an unchanged tree reuses the libraries.
+rebuilds and an unchanged tree reuses the libraries.  The threads of a
+process take a lock, and the processes sharing a checkout (the ranks of a
+group) an ``fcntl`` lock on ``build/<hash>.lock``, so only one compiles
+and the others load what it built.
 
 ``--fmad=false`` keeps every multiply and add separately rounded, in the
 order the plain PyTorch versions use, which makes the kernels' row
@@ -19,6 +22,7 @@ from __future__ import annotations
 
 import collections
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -88,32 +92,40 @@ def build_all() -> str:
             return _build_dir
         out_dir = os.path.join(BUILD_ROOT, source_hash())
         os.makedirs(out_dir, exist_ok=True)
-        nvcc = _nvcc()
-        procs = []
-        for src in SOURCES:
-            lib = os.path.join(out_dir, src[:-3] + ".so")
-            if os.path.isfile(lib):
-                continue
-            tmp = f"{lib}.{os.getpid()}.tmp"
-            log = open(os.path.join(out_dir, src[:-3] + ".log"), "w")
-            cmd = [nvcc, *NVCC_FLAGS, "-I", CSRC, "-o", tmp,
-                   os.path.join(CSRC, src)]
-            procs.append((src, lib, tmp, log,
-                          subprocess.Popen(cmd, stdout=log,
-                                           stderr=subprocess.STDOUT)))
-        failed = []
-        for src, lib, tmp, log, proc in procs:
-            rc = proc.wait()
-            log.close()
-            if rc != 0:
-                with open(log.name) as f:
-                    failed.append(f"{src} (rc {rc}):\n{f.read()}")
-            else:
-                os.replace(tmp, lib)
-        if failed:
-            raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+        with open(out_dir + ".lock", "w") as lock:
+            fcntl.flock(lock, fcntl.LOCK_EX)
+            _compile(out_dir)
         _build_dir = out_dir
         return out_dir
+
+
+def _compile(out_dir: str) -> None:
+    """Compile every source whose library is missing from ``out_dir``."""
+    nvcc = None
+    procs = []
+    for src in SOURCES:
+        lib = os.path.join(out_dir, src[:-3] + ".so")
+        if os.path.isfile(lib):
+            continue
+        nvcc = nvcc or _nvcc()
+        tmp = f"{lib}.{os.getpid()}.tmp"
+        log = open(os.path.join(out_dir, src[:-3] + ".log"), "w")
+        cmd = [nvcc, *NVCC_FLAGS, "-I", CSRC, "-o", tmp,
+               os.path.join(CSRC, src)]
+        procs.append((src, lib, tmp, log,
+                      subprocess.Popen(cmd, stdout=log,
+                                       stderr=subprocess.STDOUT)))
+    failed = []
+    for src, lib, tmp, log, proc in procs:
+        rc = proc.wait()
+        log.close()
+        if rc != 0:
+            with open(log.name) as f:
+                failed.append(f"{src} (rc {rc}):\n{f.read()}")
+        else:
+            os.replace(tmp, lib)
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
 
 
 def load(name: str, signatures: dict[str, list]) -> ctypes.CDLL:

@@ -184,12 +184,12 @@ __device__ __forceinline__ double spmv_at(const Spmv& sp, long long j,
 }
 
 __global__ void copy_row(const double* __restrict__ S, long long n,
-                         const int* __restrict__ idx, int pos,
+                         long long ld, const int* __restrict__ idx, int pos,
                          double* __restrict__ z) {
   const long long r = idx[pos];
   for (long long j = (long long)blockIdx.x * blockDim.x + threadIdx.x; j < n;
        j += (long long)gridDim.x * blockDim.x)
-    z[j] = S[r * n + j];
+    z[j] = S[r * ld + j];
 }
 
 // Positions in the index vector and the scalar vector at depth L
@@ -273,7 +273,7 @@ __device__ __forceinline__ void block_setup(
 // products are taken after the stores.
 template <int KIND, bool STABLE, bool PREC, int LC, class V>
 __device__ __forceinline__ void vector_phase(
-    double* S, long long n, int rb, int l, const int* __restrict__ idx,
+    double* S, long long ld, int rb, int l, const int* __restrict__ idx,
     const double* __restrict__ scal, const int* __restrict__ store_fill,
     const int* __restrict__ store_rec, const Spmv& sp,
     const double* __restrict__ inv_diag, V& v) {
@@ -281,9 +281,9 @@ __device__ __forceinline__ void vector_phase(
   const Ix ix(L);
   const long long j = (long long)blockIdx.x * BLOCK + threadIdx.x;
   const int u_off = (L + 1) * rb;
-  double* const x_row = S + (long long)(u_off + 4) * n;
-  double* const p_row = S + (long long)(u_off + 3) * n;
-  auto row = [&](int r) -> double* { return S + (long long)r * n; };
+  double* const x_row = S + (long long)(u_off + 4) * ld;
+  double* const p_row = S + (long long)(u_off + 3) * ld;
+  auto row = [&](int r) -> double* { return S + (long long)r * ld; };
   const bool late = idx[ix.F_LATE] != 0;
   const double zt = row(idx[ix.Z_TOP])[j];
   const double ui = row(idx[ix.U_I])[j];
@@ -391,7 +391,7 @@ __device__ __forceinline__ void block_partials(double* red, int nd,
 
 template <int KIND, int L, bool STABLE, bool PREC>
 __global__ void __launch_bounds__(BLOCK)
-    fused_iter_kernel(double* S, long long n, int rb,
+    fused_iter_kernel(double* S, long long n, long long ld, int rb,
                       const int* __restrict__ idx_g,
                       const double* __restrict__ scal_g, Spmv sp,
                       const double* __restrict__ inv_diag,
@@ -404,7 +404,7 @@ __global__ void __launch_bounds__(BLOCK)
   block_setup(L, idx_g, scal_g, idx, scal, store_fill, store_rec);
   RegVals<L> v;
   if ((long long)blockIdx.x * BLOCK + threadIdx.x < n) {
-    vector_phase<KIND, STABLE, PREC, L>(S, n, rb, L, idx, scal, store_fill,
+    vector_phase<KIND, STABLE, PREC, L>(S, ld, rb, L, idx, scal, store_fill,
                                         store_rec, sp, inv_diag, v);
   } else {
 #pragma unroll
@@ -419,7 +419,8 @@ __global__ void __launch_bounds__(BLOCK)
 // the per-thread values in dynamic shared memory (rt_smem_bytes(l)).
 template <int KIND, bool STABLE, bool PREC>
 __global__ void __launch_bounds__(BLOCK)
-    fused_iter_kernel_rt(double* S, long long n, int rb, int L,
+    fused_iter_kernel_rt(double* S, long long n, long long ld, int rb,
+                         int L,
                          const int* __restrict__ idx_g,
                          const double* __restrict__ scal_g, Spmv sp,
                          const double* __restrict__ inv_diag,
@@ -436,7 +437,7 @@ __global__ void __launch_bounds__(BLOCK)
   block_setup(L, idx_g, scal_g, idx, scal, store_fill, store_rec);
   SmemVals v{red, fill_val, rec_val, (int)threadIdx.x};
   if ((long long)blockIdx.x * BLOCK + threadIdx.x < n) {
-    vector_phase<KIND, STABLE, PREC, 0>(S, n, rb, L, idx, scal, store_fill,
+    vector_phase<KIND, STABLE, PREC, 0>(S, ld, rb, L, idx, scal, store_fill,
                                         store_rec, sp, inv_diag, v);
   } else {
     for (int k = 0; k < ND; ++k) v.prod(k) = 0.0;
@@ -465,6 +466,7 @@ __global__ void __launch_bounds__(BLOCK)
 struct Args {
   double* S;
   long long n;
+  long long ld;  // row stride of S (n for a whole slab, more for a column block)
   int rb;
   const int* idx;
   const double* scal;
@@ -487,7 +489,8 @@ void set_operand(Args& a, int l) {
   } else if constexpr (KIND != SPMV_DIAG) {
     const long long want = (a.n + BLOCK - 1) / BLOCK;
     const int grid = (int)(want < 65535 ? want : 65535);
-    copy_row<<<grid, BLOCK, 0, a.stream>>>(a.S, a.n, a.idx, 5 * l, a.zbuf);
+    copy_row<<<grid, BLOCK, 0, a.stream>>>(a.S, a.n, a.ld, a.idx, 5 * l,
+                                           a.zbuf);
     a.sp.z = a.zbuf;
   }
 }
@@ -496,7 +499,7 @@ template <int KIND, int L, bool STABLE, bool PREC>
 cudaError_t launch(Args a) {
   set_operand<KIND>(a, L);
   fused_iter_kernel<KIND, L, STABLE, PREC><<<a.nblocks, BLOCK, 0, a.stream>>>(
-      a.S, a.n, a.rb, a.idx, a.scal, a.sp, a.inv_diag, a.part);
+      a.S, a.n, a.ld, a.rb, a.idx, a.scal, a.sp, a.inv_diag, a.part);
   sum_partials<<<2 * L + 1, BLOCK, 0, a.stream>>>(a.part, a.nblocks,
                                                    a.partials);
   return cudaGetLastError();
@@ -525,7 +528,7 @@ cudaError_t launch_rt(Args a, int l) {
   set_operand<KIND>(a, l);
   fused_iter_kernel_rt<KIND, STABLE, PREC>
       <<<a.nblocks, BLOCK, (size_t)smem, a.stream>>>(
-          a.S, a.n, a.rb, l, a.idx, a.scal, a.sp, a.inv_diag, a.part);
+          a.S, a.n, a.ld, a.rb, l, a.idx, a.scal, a.sp, a.inv_diag, a.part);
   sum_partials<<<2 * l + 1, BLOCK, 0, a.stream>>>(a.part, a.nblocks,
                                                    a.partials);
   return cudaGetLastError();
@@ -555,11 +558,14 @@ cudaError_t dispatch(int l, bool stable, bool prec, const Args& a) {
 // row,) the superkernel (compile-time depth for l <= LMAX, the runtime-depth
 // kernel above) and the partials sum on `stream`, and returns
 // cudaGetLastError(); for a halo plug-in `zbuf` is the prepared operand.
+// `ld` is the slab's row stride: n for a whole slab, the wider slab's row
+// for a block of its columns (a virtual shard's, updated in place).
 // NAME_smem_optin writes the current device's largest dynamic shared memory
 // a block can opt in to, which bounds the runtime-depth kernel.
 #define FI_DEFINE_ENTRY(NAME, KIND)                                          \
   extern "C" int NAME(int l, int stable, int prec, void* S, long long n,     \
-                      int rb, const void* idx, const void* scal, void* zbuf, \
+                      long long ld, int rb, const void* idx,                 \
+                      const void* scal, void* zbuf,                          \
                       const void* inv_diag, void* part, int nblocks,         \
                       void* partials, int nx, int ny, int nz, double coef,   \
                       const void* d, const void* cols, const void* vals,     \
@@ -567,6 +573,7 @@ cudaError_t dispatch(int l, bool stable, bool prec, const Args& a) {
     fi::Args a;                                                              \
     a.S = (double*)S;                                                        \
     a.n = n;                                                                 \
+    a.ld = ld;                                                               \
     a.rb = rb;                                                               \
     a.idx = (const int*)idx;                                                 \
     a.scal = (const double*)scal;                                            \

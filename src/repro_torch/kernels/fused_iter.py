@@ -303,11 +303,12 @@ def ell_spmv(cols: torch.Tensor, vals: torch.Tensor,
 # ---------------------------------------------------------------- kernel --
 
 _ARGTYPES = [ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-             ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p,
+             ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int,
              ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-             ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
-             ctypes.c_int, ctypes.c_int, ctypes.c_double, ctypes.c_void_p,
-             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
+             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_double,
+             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+             ctypes.c_void_p]
 BLOCK = 256          # threads per block, fixed in csrc/fused_iter.cuh
 LMAX = 8             # deepest pipeline instantiated at compile time
 
@@ -350,7 +351,11 @@ def smem_optin(lib_name: str, device: torch.device) -> int:
     return int(out.value)
 
 
-def _check(t: torch.Tensor, name: str, dtype, shape, device) -> None:
+def _check(t: torch.Tensor, name: str, dtype, shape, device,
+           rows_strided: bool = False) -> None:
+    """Refuse a tensor a kernel cannot take.  ``rows_strided`` admits a
+    2-D tensor whose rows are contiguous but lie further apart (a block of
+    a wider tensor's columns)."""
     if t.device != device:
         raise ValueError(f"{name} is on {t.device}, expected {device}")
     if t.dtype != dtype:
@@ -358,6 +363,9 @@ def _check(t: torch.Tensor, name: str, dtype, shape, device) -> None:
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name} has shape {tuple(t.shape)}, "
                          f"expected {tuple(shape)}")
+    if rows_strided and t.dim() == 2 and t.stride(1) == 1 \
+            and t.stride(0) >= t.shape[1]:
+        return
     if not t.is_contiguous():
         raise ValueError(f"{name} is not contiguous")
 
@@ -403,7 +411,7 @@ def build_fused_iteration(
                     f"deepest, l = {deepest_runtime_l(have)}: the "
                     f"runtime-depth kernel needs {need} bytes of shared "
                     f"memory a block, the card allows {have}")
-        _check(S, "S", torch.float64, (nv, n), dev)
+        _check(S, "S", torch.float64, (nv, n), dev, rows_strided=True)
         _check(idx, "idx", torch.int32, (IX["size"],), dev)
         _check(scal, "scal", torch.float64, (IS["size"],), dev)
         inv = None
@@ -437,7 +445,8 @@ def build_fused_iteration(
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream(dev).cuda_stream
             rc = fn(l, int(layout.recurrence == "stable"),
-                    int(inv is not None), S.data_ptr(), n, layout.RB,
+                    int(inv is not None), S.data_ptr(), n, S.stride(0),
+                    layout.RB,
                     idx.data_ptr(), scal.data_ptr(),
                     None if zbuf is None else zbuf.data_ptr(),
                     None if inv is None else inv.data_ptr(),

@@ -17,10 +17,14 @@ copied unchanged, so both packages give the same plan:
     from next (hops slabs)]``.
 
 In one process the P shards are a stack: :func:`halo_exchange` builds
-every shard's extended vector from the (P, nxl) stack by slicing, where
-the wire form (with the torch.distributed backend) sends the same
-buffers; :func:`apply_local` is the shard-level SpMV over it, through the
-ported ELL kernel with ``use_kernel=True``.  :func:`emulate_partitioned_apply`
+every shard's extended vector from the (P, nxl) stack by slicing, and
+:func:`apply_local` is the shard-level SpMV over it, through the ported ELL
+kernel with ``use_kernel=True``.  Over a wire each rank holds one shard:
+:func:`halo_messages` lists the buffers it sends and receives (one per
+direction and hop, a pure function of its rank), :func:`halo_assemble`
+builds its extended vector from what arrived, :func:`halo_exchange_shard`
+runs the two over a ``repro_torch.parallel.wire.Wire``, and
+:func:`apply_shard` is the rank's SpMV.  :func:`emulate_partitioned_apply`
 is the pure-numpy reference.
 """
 
@@ -38,6 +42,8 @@ from repro_torch.linalg.sparse import (SparseOp, bandwidth, permute_spd,
                                        rcm_permutation)
 
 __all__ = ["PartitionPlan", "partition_spd", "halo_exchange", "apply_local",
+           "halo_tag", "halo_messages", "halo_assemble",
+           "halo_exchange_shard", "apply_extended", "apply_shard",
            "emulate_partitioned_apply", "operator_fingerprint", "plan_for"]
 
 
@@ -97,17 +103,20 @@ class PartitionPlan:
         return 2.0 * self.hops * self.max_send / self.nxl
 
 
-def partition_spd(op: SparseOp, n_shards: int) -> PartitionPlan:
+def partition_spd(op: SparseOp, n_shards: int,
+                  reorder: bool = True) -> PartitionPlan:
     """Build the :class:`PartitionPlan` for ``op`` over ``n_shards``.
 
     Requires ``op.n % n_shards == 0``.  The hop count is
     ``ceil(band / nxl)`` with ``band`` the post-RCM bandwidth.  The plan's
-    tensors lie on ``op``'s device."""
+    tensors lie on ``op``'s device.  ``reorder=False`` keeps ``op``'s own
+    row order even when it is not RCM-ordered (the ladder oracle's virtual
+    shards are contiguous slices of the operator as given)."""
     n = op.n
     assert n % n_shards == 0, (
         f"unstructured partition needs n % n_shards == 0 (n={n}, "
         f"S={n_shards}); pad the mesh generator's node count")
-    if op.ordered or n_shards == 1:
+    if op.ordered or n_shards == 1 or not reorder:
         perm = np.arange(n, dtype=np.int64)
         oop = op
     else:
@@ -246,6 +255,86 @@ def apply_local(x_local: torch.Tensor, cols: torch.Tensor,
     return ell_rowsum(vals.to(x_local.dtype), gathered.reshape(p, nxl, w))
 
 
+# --------------------------------------------------------------------------
+# One rank's shard, over a wire.
+# --------------------------------------------------------------------------
+
+def halo_tag(h: int, up: bool) -> int:
+    """Message tag of a halo buffer travelling h ranks up (to rank r+h, its
+    from-prev slab h-1) or down (to r-h, its from-next slab h-1)."""
+    return 2 * h if up else 2 * h + 1
+
+
+def halo_messages(x_local: torch.Tensor, send_up: torch.Tensor,
+                  send_dn: torch.Tensor, rank: int, size: int):
+    """Rank ``rank``'s halo messages: ``(sends, recvs)``, lists of
+    ``(peer, tag, tensor)`` and ``(peer, tag, like)``.  For each hop h it
+    sends its rows ``send_up[h-1]`` to rank+h and ``send_dn[h-1]`` to
+    rank-h, and receives one ``max_send`` buffer from each of them; no
+    message goes past the domain's ends."""
+    hops, max_send = send_up.shape
+    like = x_local.new_empty(max_send)
+    sends, recvs = [], []
+    for h in range(1, hops + 1):
+        if rank + h < size:
+            sends.append((rank + h, halo_tag(h, True),
+                          x_local[send_up[h - 1].long()]))
+            recvs.append((rank + h, halo_tag(h, False), like))
+        if rank - h >= 0:
+            sends.append((rank - h, halo_tag(h, False),
+                          x_local[send_dn[h - 1].long()]))
+            recvs.append((rank - h, halo_tag(h, True), like))
+    return sends, recvs
+
+
+def halo_assemble(x_local: torch.Tensor, hops: int, max_send: int,
+                  rank: int, recvs, got) -> torch.Tensor:
+    """The extended vector [own | from rank-1, ..., rank-hops | from
+    rank+1, ..., rank+hops] from the buffers ``got`` that arrived for
+    ``recvs`` (as :func:`halo_messages` listed them), zeros where no peer
+    exists: the one-shard form of :func:`halo_exchange`."""
+    zero = x_local.new_zeros(max_send)
+    from_prev, from_next = [zero] * hops, [zero] * hops
+    for (peer, _, _), buf in zip(recvs, got):
+        if peer < rank:
+            from_prev[rank - peer - 1] = buf
+        else:
+            from_next[peer - rank - 1] = buf
+    return torch.cat([x_local] + from_prev + from_next)
+
+
+def halo_exchange_shard(x_local: torch.Tensor, send_up: torch.Tensor,
+                        send_dn: torch.Tensor, wire) -> torch.Tensor:
+    """This rank's extended local vector over ``wire``: one send and one
+    receive per (direction, hop), posted as one batch."""
+    sends, recvs = halo_messages(x_local, send_up, send_dn, wire.rank,
+                                 wire.size)
+    got = wire.exchange(sends, recvs, kind="halo")
+    hops, max_send = send_up.shape
+    return halo_assemble(x_local, hops, max_send, wire.rank, recvs, got)
+
+
+def apply_extended(xe: torch.Tensor, cols: torch.Tensor, vals: torch.Tensor,
+                   use_kernel: bool = False) -> torch.Tensor:
+    """One shard's ELL product over its extended vector ``xe`` (cols
+    (nxl, w) index it): through the ELL kernel with ``use_kernel=True``,
+    otherwise ``ell_rowsum``'s chain, as :func:`apply_local` per shard."""
+    if use_kernel:
+        from repro_torch.kernels import ops as kops
+
+        return kops.ell_spmv_apply(xe, cols, vals)
+    return ell_rowsum(vals.to(xe.dtype), xe[cols.long()])
+
+
+def apply_shard(x_local: torch.Tensor, cols: torch.Tensor, vals: torch.Tensor,
+                send_up: torch.Tensor, send_dn: torch.Tensor, wire,
+                use_kernel: bool = False) -> torch.Tensor:
+    """This rank's unstructured SpMV: the halo exchange over ``wire``, then
+    the local ELL product (``use_kernel`` routes it through the kernel)."""
+    xe = halo_exchange_shard(x_local, send_up, send_dn, wire)
+    return apply_extended(xe, cols, vals, use_kernel)
+
+
 def emulate_partitioned_apply(plan: PartitionPlan,
                               xp: np.ndarray) -> np.ndarray:
     """Pure-numpy reference of halo_exchange + apply_local: gather each
@@ -301,12 +390,14 @@ def operator_fingerprint(op: Any) -> str:
 _PLAN_CACHE: dict[tuple, PartitionPlan] = {}
 
 
-def plan_for(op: SparseOp, n_shards: int) -> PartitionPlan:
+def plan_for(op: SparseOp, n_shards: int,
+             reorder: bool = True) -> PartitionPlan:
     """Memoized :func:`partition_spd` keyed by operator fingerprint: RCM
-    and the send sets are set-up work paid once per operator."""
-    key = (operator_fingerprint(op), n_shards)
+    and the send sets are set-up work paid once per operator (a rank's
+    backend partitions the operator of every solve it is given)."""
+    key = (operator_fingerprint(op), n_shards, reorder)
     plan = _PLAN_CACHE.get(key)
     if plan is None:
-        plan = partition_spd(op, n_shards)
+        plan = partition_spd(op, n_shards, reorder)
         _PLAN_CACHE[key] = plan
     return plan

@@ -1,7 +1,9 @@
 """Single-token decode attention and the split-KV merge (counterparts of
 ``repro/models/attention.py``'s ``decode_attention_jnp`` and
-``merge_decode_shards``).  The rest of the JAX module (prefill, flash
-attention, the model's decode step) is not ported yet."""
+``merge_decode_shards``): :func:`merge_decode_shards` merges the shards'
+statistics held in one process, or, given a wire, each rank's own over a
+``torch.distributed`` group.  The rest of the JAX module
+(prefill, flash attention, the model's decode step) is not ported yet."""
 
 from __future__ import annotations
 
@@ -29,13 +31,27 @@ def decode_attention_torch(q, k_cache, v_cache, kv_len):
     return o.reshape(b, h, d).to(q.dtype)
 
 
-def merge_decode_shards(o, m, l):
-    """Split-KV combine of P shards' unnormalized decode statistics, held
-    in one process: o (P, ..., D), m and l (P, ..., 1), each shard's stats
-    stacked on the leading axis.  One max and one sum over the shards, each
-    a left-to-right chain in shard order, as the JAX package's one pmax and
-    one fused psum of [o * scale, l * scale].  Returns the normalized
-    (..., D) output."""
+def merge_decode_shards(o, m, l, wire=None):
+    """Split-KV combine of P shards' unnormalized decode statistics.
+
+    Without ``wire``, held in one process: o (P, ..., D), m and l
+    (P, ..., 1), each shard's stats stacked on the leading axis; one max and
+    one sum over the shards, each a left-to-right chain in shard order, as
+    the JAX package's one pmax and one fused psum of [o * scale,
+    l * scale].  With ``wire`` (``repro_torch.parallel.wire.Wire``), one
+    shard per rank: o (..., D), m and l (..., 1) are this rank's (from
+    ``kernels.ops.decode_attention_stats`` on its part of the cache), and
+    every rank gets the merged output from one ``all_reduce(MAX)`` of m
+    and one ``all_reduce(SUM)`` of [o * scale, l * scale].  Returns the
+    normalized (..., D) output."""
+    d = o.shape[-1]
+    if wire is not None:
+        import torch.distributed as dist
+
+        m_glob = wire.all_reduce(m.clone(), op=dist.ReduceOp.MAX)
+        scale = torch.exp(m - m_glob)
+        num_den = wire.all_reduce(torch.cat([o * scale, l * scale], dim=-1))
+        return num_den[..., :d] / torch.clamp_min(num_den[..., d:], 1e-30)
     m_glob = m[0]
     for p in range(1, m.shape[0]):
         m_glob = torch.maximum(m_glob, m[p])
@@ -44,5 +60,5 @@ def merge_decode_shards(o, m, l):
     total = num_den[0]
     for p in range(1, num_den.shape[0]):
         total = total + num_den[p]
-    d = o.shape[-1]
     return total[..., :d] / torch.clamp_min(total[..., d:], 1e-30)
+

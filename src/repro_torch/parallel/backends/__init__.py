@@ -1,12 +1,17 @@
-"""Reduction-backend registry (only ``local`` is ported so far)."""
+"""Reduction-backend registry: ``local`` (one device, with the ladder
+oracle over virtual shards) and ``multiprocess`` (torch.distributed, one
+process per rank; the JAX package's ``shard_map`` and ``multiprocess``
+backends in one)."""
 
 from __future__ import annotations
 
 from repro_torch.parallel.backends.base import METHODS, ReductionBackend
 from repro_torch.parallel.backends.local import LocalBackend
+from repro_torch.parallel.backends.multiprocess import MultiprocessBackend
 
 _REGISTRY: dict[str, type[ReductionBackend]] = {
     LocalBackend.name: LocalBackend,
+    MultiprocessBackend.name: MultiprocessBackend,
 }
 
 
@@ -15,10 +20,13 @@ def available_backends() -> tuple[str, ...]:
 
 
 def get_backend(name: str, **kwargs) -> ReductionBackend:
-    if name in ("shard_map", "multiprocess"):
-        raise NotImplementedError(
-            f"backend {name!r} is not ported yet (ROADMAP.md, queue 1 "
-            "item 2: one torch.distributed backend)")
+    """Instantiate a reduction backend by name; ``kwargs`` go to its
+    constructor."""
+    if name == "shard_map":
+        raise ValueError(
+            "backend 'shard_map' has no counterpart in the port: one process "
+            "per rank is PyTorch's model, so use 'multiprocess' "
+            "(torch.distributed, NCCL on the card, gloo on the CPU)")
     try:
         cls = _REGISTRY[name]
     except KeyError:
@@ -28,4 +36,4 @@ def get_backend(name: str, **kwargs) -> ReductionBackend:
 
 
 __all__ = ["METHODS", "ReductionBackend", "LocalBackend",
-           "available_backends", "get_backend"]
+           "MultiprocessBackend", "available_backends", "get_backend"]

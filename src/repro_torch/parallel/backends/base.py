@@ -1,7 +1,7 @@
 """Reduction-backend interface (counterpart of
-``repro/parallel/backends/base.py``): the substrate behind ``SolverOps``.
-Only the single-device ``local`` backend is ported so far; the
-torch.distributed backend follows (ROADMAP.md, queue 1 item 2)."""
+``repro/parallel/backends/base.py``): the substrate behind ``SolverOps``,
+implemented by the single-device ``local`` backend and the
+torch.distributed ``multiprocess`` backend."""
 
 from __future__ import annotations
 
@@ -19,16 +19,9 @@ class ReductionBackend(abc.ABC):
 
     name: ClassVar[str]
 
-    # Capability flag: whether this substrate can run the dot block as the
-    # staged ring-reduction ladder (``repro_torch.parallel.reduction``).  A
-    # backend that cannot sets it False and ``resolve_backend_reduction``
-    # downgrades a staged request to monolithic, recording why in
-    # ``reduction_fallback``.
-    supports_staged_reduction: ClassVar[bool] = True
-    # Set by constructors: the reduction mode that runs, and why it differs
-    # from the request (or None).
+    # Set by constructors: the reduction mode that runs ("monolithic" or
+    # "staged", ``repro_torch.parallel.reduction``).
     reduction_mode: str = "monolithic"
-    reduction_fallback: str | None = None
 
     @abc.abstractmethod
     def solve(self, op, b, method: str = "plcg", prec=None,

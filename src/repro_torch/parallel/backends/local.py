@@ -3,7 +3,9 @@
 in-process row reduction (``types.dot_block_rows``), or, on the fused
 path, the superkernel's partials.  ``reduction="staged"`` runs the ladder
 oracle over ``virtual_shards`` contiguous slices
-(``repro_torch.parallel.reduction``)."""
+(``repro_torch.parallel.reduction``), bitwise equal to the staged unfused
+``multiprocess`` backend over that many ranks; its fused path files the
+whole-vector superkernel's partial in slot 0, as the JAX package's does."""
 
 from __future__ import annotations
 
@@ -21,16 +23,17 @@ class LocalBackend(ReductionBackend):
         """``device`` (default ``cuda``) is where a right-hand side given
         as an array is placed.  ``reduction="staged"`` runs the LADDER
         ORACLE: the dot block splits into ``virtual_shards`` contiguous
-        slices whose partials fill the gather buffer directly, then the
+        slices whose partials fill the gather buffer directly (on the fused
+        path, the superkernel's one partial fills slot 0), then the
         rank-ordered (for ``reduction_dtype=torch.float32``,
-        fp64-compensated) combine of a staged mesh run with that many
-        shards, with no wire."""
+        fp64-compensated) combine of a staged run over that many ranks,
+        with no wire."""
         from repro_torch.parallel.reduction import resolve_backend_reduction
 
         self.device = resolve_device(device)
         self.reduction_cfg = resolve_backend_reduction(
             self, reduction, reduction_stages, reduction_dtype,
-            virtual_shards, axis=None)
+            virtual_shards)
 
     def make_ops(self, op, prec=None) -> SolverOps:
         if self.reduction_cfg is not None:

@@ -1,29 +1,65 @@
-"""Shard-level pieces of the row-partitioned solve (counterpart of parts of
+"""The row-partitioned solve over ranks (counterpart of
 ``repro/parallel/distributed.py``).
 
-The operator is split over P shards by rows: the structured stencils by
-x-planes (``nx % P == 0``), a ``SparseOp`` by a
-:class:`~repro_torch.linalg.partition.PartitionPlan`.  This module holds
-what one shard's fused vector phase needs, with the halo left to the
-caller's ``prepare``: :func:`fused_spmv_local` picks the superkernel's
-halo-extended plug-in for a shard, as ``_fused_spmv_local`` does in the
-JAX package, and :func:`halo_first_dim` is the in-process plane halo over
-the (P, ...) stack of virtual shards.  The wire forms of the halos, the
-partitioned SolverOps and the distributed solve come with the
-torch.distributed backend (ROADMAP.md, queue 1 item 2).
+This is the paper's MPI rank layout on a ``torch.distributed`` group, one
+process per rank:
+
+* the solution vector is DOMAIN-DECOMPOSED: each rank owns a contiguous
+  block of rows, the structured stencils by x-planes (``nx % P == 0``), a
+  ``SparseOp`` by a :class:`~repro_torch.linalg.partition.PartitionPlan`;
+* the SPMV is a halo exchange (point-to-point messages of boundary planes
+  or ELL send sets over a :class:`~repro_torch.parallel.wire.Wire`)
+  followed by a purely local apply;
+* the preconditioner is communication-free (Jacobi, or block-Jacobi with
+  blocks interior to a rank);
+* ALL inner products of an iteration form ONE dot block, reduced as one
+  asynchronous ``all_reduce`` (the MPI_Iallreduce, waited l iterations
+  later by p(l)-CG) or as the staged ring ladder
+  (``repro_torch.parallel.reduction``).
+
+The solvers (``repro_torch.core``) are the single-device ones: every
+global operation goes through ``SolverOps``.  Each rank's fused vector
+phase is the superkernel with its halo-extended plug-in, whose ``prepare``
+is the wire halo (:func:`fused_spmv_local`); ``Stencil3D27``, a
+``use_kernel`` operator and block-Jacobi have no fused shard path, as in
+the JAX package, and run unfused.
+
+The shard applies take their halo from a callable, so one process can
+feed them the in-process halos of a (P, ...) stack of virtual shards
+(:func:`halo_first_dim`, ``partition.halo_exchange``), as the fused ranks'
+reference does (:func:`rank_oracle_ops`).
 """
 
 from __future__ import annotations
 
+import collections
+import dataclasses
 from typing import Callable
 
+import numpy as np
 import torch
+import torch.nn.functional as F
 
+from repro_torch.core import METHODS
+from repro_torch.core.types import SolveResult, SolverOps, dot_block_rows
 from repro_torch.kernels import fused_iter as fi
 from repro_torch.kernels import ref
+from repro_torch.linalg import partition as partition_mod
+from repro_torch.linalg.operators import (DiagonalOp, LinearOperator,
+                                          Stencil2D5, Stencil3D7, Stencil3D27)
+from repro_torch.linalg.preconditioners import (BlockJacobi, IdentityPrec,
+                                                JacobiPrec)
+from repro_torch.linalg.sparse import SparseOp
 
-__all__ = ["halo_first_dim", "fused_spmv_local"]
+__all__ = ["halo_first_dim", "plane_messages", "halo_planes",
+           "fused_spmv_local", "shard_arrays", "partitioned_solver_ops",
+           "stacked_fused_factory", "rank_oracle_ops", "distributed_solve",
+           "AllReduceHandles"]
 
+
+# --------------------------------------------------------------------------
+# Halo planes of an x-partitioned grid.
+# --------------------------------------------------------------------------
 
 def halo_first_dim(z_local: torch.Tensor, plane: int) -> torch.Tensor:
     """Every shard's halo-extended operand of an x-partitioned grid, in
@@ -38,6 +74,201 @@ def halo_first_dim(z_local: torch.Tensor, plane: int) -> torch.Tensor:
     below = torch.cat([g[1:, :1], zero])
     return torch.cat([above, g, below], dim=1).reshape(p, -1)
 
+
+def plane_messages(g: torch.Tensor, rank: int, size: int):
+    """Rank ``rank``'s boundary-plane messages for a grid ``g`` (nxl, ...):
+    its last plane goes to rank+1 (that rank's plane above), its first to
+    rank-1 (its plane below), and one plane arrives from each neighbour.
+    ``(sends, recvs)`` as ``partition.halo_messages`` lists them."""
+    sends, recvs = [], []
+    up, dn = partition_mod.halo_tag(1, True), partition_mod.halo_tag(1, False)
+    if rank + 1 < size:
+        sends.append((rank + 1, up, g[-1]))
+        recvs.append((rank + 1, dn, g[-1]))
+    if rank > 0:
+        sends.append((rank - 1, dn, g[0]))
+        recvs.append((rank - 1, up, g[0]))
+    return sends, recvs
+
+
+def halo_planes(g: torch.Tensor, wire) -> tuple[torch.Tensor, torch.Tensor]:
+    """Exchange one boundary plane along the partitioned first grid dim
+    over ``wire`` (the JAX package's ``_halo_first_dim``): returns this
+    rank's (plane above, plane below), each (1, ...), zeros where no
+    neighbour exists."""
+    sends, recvs = plane_messages(g, wire.rank, wire.size)
+    got = wire.exchange(sends, recvs, kind="halo") if sends else []
+    above = below = torch.zeros_like(g[:1])
+    for (peer, _, _), buf in zip(recvs, got):
+        if peer < wire.rank:
+            above = buf[None]
+        else:
+            below = buf[None]
+    return above, below
+
+
+# --------------------------------------------------------------------------
+# Shard applies: plain torch, as in the JAX package.
+# --------------------------------------------------------------------------
+
+def _apply_2d5_local(x, nxl: int, ny: int, halo) -> torch.Tensor:
+    g = x.reshape(nxl, ny)
+    up, dn = halo(g)
+    gp = torch.cat([up, g, dn])                        # (nxl+2, ny)
+    gy = F.pad(g, (1, 1))
+    out = 4.0 * g - gp[:-2] - gp[2:] - gy[:, :-2] - gy[:, 2:]
+    return out.reshape(-1)
+
+
+def _apply_3d7_local(x, nxl: int, ny: int, nz: int, eps_z: float,
+                     halo) -> torch.Tensor:
+    g = x.reshape(nxl, ny, nz)
+    up, dn = halo(g)
+    gp = torch.cat([up, g, dn])
+    gy = F.pad(g, (0, 0, 1, 1))
+    gz = F.pad(g, (1, 1))
+    ez = torch.full((), eps_z, dtype=x.dtype, device=x.device)
+    out = ((4.0 + 2.0 * ez) * g
+           - gp[:-2] - gp[2:]
+           - gy[:, :-2, :] - gy[:, 2:, :]
+           - ez * gz[:, :, :-2] - ez * gz[:, :, 2:])
+    return out.reshape(-1)
+
+
+def _apply_3d27_local(x, nxl: int, ny: int, nz: int, centre: float,
+                      halo) -> torch.Tensor:
+    g = x.reshape(nxl, ny, nz)
+    up, dn = halo(g)
+    gp = F.pad(torch.cat([up, g, dn]), (1, 1, 1, 1))   # pad y, z of halo too
+    out = centre * g
+    for di in (-1, 0, 1):
+        for dj in (-1, 0, 1):
+            for dk in (-1, 0, 1):
+                order = abs(di) + abs(dj) + abs(dk)
+                if order == 0:
+                    continue
+                w = {1: 1.0, 2: 0.5, 3: 0.25}[order]
+                out = out - w * gp[1 + di:1 + di + nxl, 1 + dj:1 + dj + ny,
+                                   1 + dk:1 + dk + nz]
+    return out.reshape(-1)
+
+
+# --------------------------------------------------------------------------
+# Partitioning of operators and preconditioners.
+# --------------------------------------------------------------------------
+
+def _partition_op(op: LinearOperator, n_shards: int, reorder: bool = True):
+    """Return ``(arrays, build, perm)``: ``arrays`` the operator's arrays
+    whose leading axis splits over the ranks (:func:`shard_arrays`),
+    ``build(loc, halo)`` the rank's apply given its arrays ``loc`` and
+    its halo source, and ``perm`` the row ordering the partition imposed
+    (``perm[new] = old``; None when the operator keeps its order).
+
+    ``halo`` is a wire (:class:`~repro_torch.parallel.wire.Wire`) or, in
+    one process, a callable: ``halo(g) -> (plane above, plane below)`` for
+    a stencil grid, ``halo(x_local) -> extended vector`` for a
+    ``SparseOp``.  A ``SparseOp`` is partitioned by ``partition.plan_for``
+    (RCM unless ``reorder=False`` or already ordered)."""
+    if isinstance(op, SparseOp):
+        plan = partition_mod.plan_for(op, n_shards, reorder)
+        arrays = {"cols": plan.cols, "vals": plan.vals,
+                  "send_up": plan.send_up, "send_dn": plan.send_dn}
+        use_kernel = op.use_kernel
+
+        def build(loc, halo):
+            cols, vals = loc["cols"][0], loc["vals"][0]
+            su, sd = loc["send_up"][0], loc["send_dn"][0]
+            if callable(halo):
+                return lambda x: partition_mod.apply_extended(
+                    halo(x), cols, vals, use_kernel)
+            return lambda x: partition_mod.apply_shard(
+                x, cols, vals, su, sd, halo, use_kernel)
+
+        perm = None if plan.identity_perm else plan.perm
+        return arrays, build, perm
+
+    if isinstance(op, DiagonalOp):
+        def build(loc, halo):
+            return lambda x: loc["d"].to(x.dtype) * x
+
+        return {"d": op.d}, build, None
+
+    def planes(halo):
+        return halo if callable(halo) else \
+            (lambda g: halo_planes(g, halo))
+
+    if isinstance(op, (Stencil2D5, Stencil3D7, Stencil3D27)):
+        if op.nx % n_shards:
+            raise ValueError(f"nx = {op.nx} does not split into "
+                             f"{n_shards} x-slabs")
+        nxl = op.nx // n_shards
+    if isinstance(op, Stencil2D5):
+        return {}, lambda loc, halo: (
+            lambda x: _apply_2d5_local(x, nxl, op.ny, planes(halo))), None
+    if isinstance(op, Stencil3D7):
+        return {}, lambda loc, halo: (
+            lambda x: _apply_3d7_local(x, nxl, op.ny, op.nz, op.eps_z,
+                                       planes(halo))), None
+    if isinstance(op, Stencil3D27):
+        return {}, lambda loc, halo: (
+            lambda x: _apply_3d27_local(x, nxl, op.ny, op.nz, op.centre,
+                                        planes(halo))), None
+    raise TypeError(f"no distributed implementation for {type(op).__name__}")
+
+
+def _partition_prec(prec, op: LinearOperator, n_shards: int, perm=None):
+    """As :func:`_partition_op` for the preconditioner: ``(arrays,
+    build)``.  ``perm`` is the row ordering the operator partition
+    imposed: pointwise preconditioners follow it; block-structured ones
+    cannot, so pre-order the operator (``sparse.rcm_reorder``) and build
+    the preconditioner from the ordered operator instead."""
+    if prec is None or isinstance(prec, IdentityPrec):
+        return {}, lambda loc: (lambda x: x)
+    if isinstance(prec, JacobiPrec):
+        inv_diag = prec.inv_diag if perm is None else \
+            prec.inv_diag[torch.as_tensor(perm, device=prec.inv_diag.device)]
+        return {"inv_diag": inv_diag}, lambda loc: (
+            lambda x: loc["inv_diag"].to(x.dtype) * x)
+    if perm is not None:
+        raise TypeError(
+            f"{type(prec).__name__} is block-structured and cannot follow "
+            "the partitioner's RCM reordering; reorder the operator first "
+            "(repro_torch.linalg.sparse.rcm_reorder) and build the "
+            "preconditioner from the ordered operator")
+    if isinstance(prec, BlockJacobi):
+        bs = prec.inv_blocks.shape[1]
+        if (op.n // n_shards) % bs:
+            raise ValueError("block-Jacobi blocks must be interior to a "
+                             f"shard (local size {op.n // n_shards}, "
+                             f"block {bs})")
+
+        def build(loc):
+            def apply(x):
+                inv = loc["inv_blocks"]
+                y = torch.einsum("nij,nj->ni", inv.to(x.dtype),
+                                 x.reshape(inv.shape[0], bs))
+                return y.reshape(-1)
+
+            return apply
+
+        return {"inv_blocks": prec.inv_blocks}, build
+    raise TypeError(f"no distributed implementation for {type(prec).__name__}")
+
+
+def shard_arrays(arrays, n_shards: int, rank: int):
+    """Rank ``rank``'s part of ``arrays`` (a dict, nested or flat): each
+    tensor's leading axis split into ``n_shards`` equal blocks, block
+    ``rank`` kept (a plan's (P, ...) arrays give (1, ...)), as the JAX
+    package's ``P(axis)`` in-spec does."""
+    if isinstance(arrays, dict):
+        return {k: shard_arrays(v, n_shards, rank) for k, v in arrays.items()}
+    m = arrays.shape[0] // n_shards
+    return arrays[rank * m:(rank + 1) * m]
+
+
+# --------------------------------------------------------------------------
+# The fused shard path: the superkernel's halo-extended plug-ins.
+# --------------------------------------------------------------------------
 
 def fused_spmv_local(op, loc: dict, n_shards: int,
                      prepare: Callable[[torch.Tensor], torch.Tensor] | None
@@ -54,10 +285,6 @@ def fused_spmv_local(op, loc: dict, n_shards: int,
     from next] for a ``SparseOp``; the diagonal needs none.  The plug-in
     evaluates the shard expression of the JAX package's
     ``_fused_spmv_local`` term by term."""
-    from repro_torch.linalg.operators import (DiagonalOp, Stencil2D5,
-                                              Stencil3D7)
-    from repro_torch.linalg.sparse import SparseOp
-
     if isinstance(op, DiagonalOp):
         return fi.diagonal_spmv(loc["d"])
     if getattr(op, "use_kernel", False):
@@ -79,3 +306,268 @@ def fused_spmv_local(op, loc: dict, n_shards: int,
             lambda z: ref.stencil3d7_halo_ref(z, nxl, ny, nz, ez),
             (nxl, ny, nz), ez, prepare=prepare)
     return None
+
+
+def _one_shard(loc: dict) -> dict:
+    """A rank's plug-in arrays: the plan's (1, ...) blocks as one shard's."""
+    return {k: (v[0] if k in ("cols", "vals", "send_up", "send_dn") else v)
+            for k, v in loc.items()}
+
+
+def _wire_prepare(op, loc: dict, n_shards: int, wire):
+    """``prepare(z_top)`` of a rank's halo plug-in: the wire halo."""
+    if isinstance(op, SparseOp):
+        su, sd = loc["send_up"], loc["send_dn"]
+        return lambda z: partition_mod.halo_exchange_shard(z, su, sd, wire)
+    if isinstance(op, (Stencil2D5, Stencil3D7)):
+        shape = (op.nx // n_shards,) + ((op.ny,) if isinstance(op, Stencil2D5)
+                                        else (op.ny, op.nz))
+
+        def prep(z):
+            g = z.reshape(shape)
+            up, dn = halo_planes(g, wire)
+            return torch.cat([up, g, dn]).reshape(-1)
+
+        return prep
+    return None
+
+
+def _pointwise_inv_diag(prec, loc: dict):
+    """(ok, inv_diag): the superkernel takes identity or Jacobi only."""
+    if prec is None or isinstance(prec, IdentityPrec):
+        return True, None
+    if isinstance(prec, JacobiPrec):
+        return True, loc["inv_diag"]
+    return False, None
+
+
+def _fused_factory_dist(op, prec, loc: dict, n_shards: int, wire):
+    """``SolverOps.fused_iter_factory`` of one rank, or None for an
+    (operator, preconditioner) pair with no fused shard path."""
+    ok, inv_diag = _pointwise_inv_diag(prec, loc)
+    if not ok:
+        return None                  # block solves are not pointwise
+    one = _one_shard(loc)
+    spmv = fused_spmv_local(op, one, n_shards,
+                            _wire_prepare(op, one, n_shards, wire))
+    if spmv is None:
+        return None
+
+    def factory(layout):
+        return fi.build_fused_iteration(layout, spmv, inv_diag)
+
+    return factory
+
+
+def stacked_fused_factory(op, prec, n_shards: int):
+    """The fused ranks' reference path: ``factory(layout)`` returns
+    ``fiter(S, idx, scal) -> (S, partials (P, 2l+1))`` running, in one
+    process, every virtual shard's halo plug-in on its contiguous block of
+    the slab's columns, with the halos taken from the ring-top row of the
+    whole slab (:func:`halo_first_dim`, ``partition.halo_exchange``; no
+    phase writes that row).  Row r of ``partials`` is what rank r's own
+    superkernel gives, so the reference's gather buffer is a staged P-rank
+    run's.  Each shard's superkernel updates its block of columns in
+    place (the kernel takes the slab's row stride).  None where a rank has
+    no fused path (or the operator does not split into ``n_shards``
+    blocks)."""
+    if not _pointwise_inv_diag(prec, {"inv_diag": None})[0]:
+        return None
+    if getattr(op, "use_kernel", False) or not isinstance(
+            op, (DiagonalOp, SparseOp, Stencil2D5, Stencil3D7)):
+        return None
+    if op.n % n_shards or (not isinstance(op, (DiagonalOp, SparseOp))
+                           and op.nx % n_shards):
+        return None
+
+    def factory(layout):
+        op_arrays, _, _ = _partition_op(op, n_shards, reorder=False)
+        pr_arrays, _ = _partition_prec(prec, op, n_shards)
+        locs = [_one_shard(shard_arrays({**op_arrays, **pr_arrays},
+                                        n_shards, r))
+                for r in range(n_shards)]
+        current: dict = {}           # this phase's stacked operands
+        fiters = [fi.build_fused_iteration(
+            layout,
+            fused_spmv_local(op, locs[r], n_shards,
+                             lambda z, r=r: current["ext"][r]),
+            _pointwise_inv_diag(prec, locs[r])[1])
+            for r in range(n_shards)]
+        if isinstance(op, SparseOp):
+            su, sd = op_arrays["send_up"], op_arrays["send_dn"]
+
+            def stack(z):
+                return partition_mod.halo_exchange(
+                    z.reshape(n_shards, -1), su, sd)
+        elif isinstance(op, DiagonalOp):
+            stack = None             # no halo
+        else:
+            plane = op.ny if isinstance(op, Stencil2D5) else op.ny * op.nz
+
+            def stack(z):
+                return halo_first_dim(z.reshape(n_shards, -1), plane)
+        pos = fi.idx_layout(layout.l)["z_top"]
+
+        def fiter(S, idx, scal):
+            if stack is not None:
+                sel = idx[pos:pos + 1] if isinstance(idx, torch.Tensor) \
+                    else torch.tensor(idx[pos:pos + 1], device=S.device)
+                current["ext"] = stack(S.index_select(0, sel)[0])
+            nl = S.shape[1] // n_shards
+            parts = []
+            for r in range(n_shards):
+                view = S[:, r * nl:(r + 1) * nl]  # the kernel writes it
+                S_r, p_r = fiters[r](view, idx, scal)
+                if S_r is not view:               # the plain version's copy
+                    view.copy_(S_r)
+                parts.append(p_r)
+            current.clear()
+            return S, torch.stack(parts)
+
+        return fiter
+
+    return factory
+
+
+def rank_oracle_ops(op, prec, cfg) -> SolverOps:
+    """The bitwise reference, in one process, of a staged run over
+    ``cfg.n_shards`` ranks (``cfg`` a ``StagedConfig``), fused or not: the
+    ladder oracle (``reduction.oracle_solver_ops``) whose fused path runs
+    every virtual shard's halo plug-in (:func:`stacked_fused_factory`) and
+    files rank r's partial in slot r (``reduction.oracle_gather``).
+    ``LocalBackend``'s oracle keeps the JAX package's fused path (the
+    whole-vector partial in slot 0), so it is bitwise a staged run over
+    ranks on the unfused path only."""
+    from repro_torch.parallel import reduction as reduction_mod
+
+    return dataclasses.replace(
+        reduction_mod.oracle_solver_ops(op, prec, cfg),
+        fused_iter_factory=stacked_fused_factory(op, prec, cfg.n_shards),
+        combine_partials=lambda p_: reduction_mod.oracle_gather(p_, cfg))
+
+
+# --------------------------------------------------------------------------
+# The dot block over a wire: async all-reduce handles.
+# --------------------------------------------------------------------------
+
+class AllReduceHandles:
+    """The monolithic dot block over a wire: ``start`` issues one
+    asynchronous all-reduce of the partials (the MPI_Iallreduce) and keeps
+    its request; ``wait`` completes it (the MPI_Wait).
+
+    The solvers hold a handle either directly (a blocking start and wait:
+    the initial norm, a restart's block, Ghysels p-CG's one block) or as a
+    copy in p(l)-CG's D ring, waited l iterations later.  So ``start``
+    returns a fresh alias of a zero token, and the requests stay here in
+    issue order: a wait on a token returned by ``start`` completes that
+    request (and the older ones, which a restart abandoned); a wait on a
+    ring slot completes the oldest request, the one issued l iterations
+    earlier; with none in flight (a pipeline-fill slot) it returns the
+    slot.  The all-reduced tensor is never copied before its wait, and on
+    NCCL a wait orders the caller's stream after the collective without
+    blocking the host."""
+
+    def __init__(self, wire):
+        self.wire = wire
+        self.pending: collections.deque = collections.deque()
+        self._tokens: dict = {}
+
+    def start(self, partials: torch.Tensor) -> torch.Tensor:
+        key = (tuple(partials.shape), partials.dtype, partials.device)
+        tok = self._tokens.get(key)
+        if tok is None:
+            tok = self._tokens[key] = torch.zeros_like(partials)
+        handle = tok.view(tok.shape)
+        self.pending.append((handle, self.wire.all_reduce_async(partials)))
+        return handle
+
+    def wait(self, handle: torch.Tensor, advanced: int = 0) -> torch.Tensor:
+        for pos, (tok, _) in enumerate(self.pending):
+            if tok is handle:
+                for _ in range(pos):
+                    self.pending.popleft()[1].wait()
+                return self.pending.popleft()[1].wait()
+        if not self.pending:
+            return handle
+        return self.pending.popleft()[1].wait()
+
+
+def partitioned_solver_ops(op, prec, n_shards: int, reduction=None):
+    """``(arrays, build, perm)`` of a full SolverOps: ``build(loc, wire)``
+    gives rank ``wire.rank``'s ops from its arrays ``loc``
+    (``shard_arrays(arrays, n_shards, rank)``).  ``perm`` (``perm[new] =
+    old``, or None) is the row ordering the partition imposed: callers
+    permute b on the way in and x on the way out (every scalar the solver
+    derives is permutation-invariant).
+
+    The dot block is one asynchronous all-reduce
+    (:class:`AllReduceHandles`), or, with ``reduction`` a
+    ``StagedConfig``, the staged ring ladder over the wire."""
+    from repro_torch.parallel import reduction as reduction_mod
+
+    op_arrays, op_build, perm = _partition_op(op, n_shards)
+    pr_arrays, pr_build = _partition_prec(prec, op, n_shards, perm)
+    arrays = {"op": op_arrays, "prec": pr_arrays}
+
+    def build(loc, wire) -> SolverOps:
+        if reduction is None:
+            handles = AllReduceHandles(wire)
+            red = dict(dot_block_start=lambda m, v: handles.start(
+                dot_block_rows(m, v)), dot_block_wait=handles.wait,
+                combine_partials=handles.start)
+        else:
+            cfg = dataclasses.replace(reduction, n_shards=n_shards)
+            red = reduction_mod.staged_ops_pieces(cfg, wire)
+        return SolverOps.create(
+            apply_a=op_build(loc["op"], wire), prec=pr_build(loc["prec"]),
+            dot_block=lambda m, v: wire.all_reduce(dot_block_rows(m, v)),
+            fused_iter_factory=_fused_factory_dist(
+                op, prec, {**loc["op"], **loc["prec"]}, n_shards, wire),
+            **red)
+
+    return arrays, build, perm
+
+
+def _permutation_wrappers(perm):
+    """(pre, post) for a partition-imposed row ordering: ``pre`` maps an
+    (n,) operand into the permuted basis, ``post`` maps a SolveResult's
+    (gathered) solution back.  Pass-throughs for None."""
+    if perm is None:
+        return (lambda b: b), (lambda res: res)
+    inv = np.empty_like(perm)
+    inv[perm] = np.arange(perm.size)
+
+    def pre(b):
+        return b[torch.as_tensor(perm, device=b.device)]
+
+    def post(res: SolveResult) -> SolveResult:
+        return res._replace(x=res.x[torch.as_tensor(inv, device=res.x.device)])
+
+    return pre, post
+
+
+def distributed_solve(wire, op, b, method: str = "plcg", prec=None,
+                      reduction=None, **kwargs) -> SolveResult:
+    """Solve A x = b with the chosen CG variant on this rank's block of
+    rows; every rank of ``wire``'s group calls it with the same global
+    ``op``, ``b`` and arguments.  ``kwargs`` go to the solver (l, tol,
+    maxit, sigmas, fused_iteration, unroll, ...); ``reduction``
+    (StagedConfig or None) picks the staged ladder.  Every host decision
+    of the solvers reads reduced values only, which every rank holds
+    bit for bit, so the ranks take the same branches.  The result's x is
+    the whole solution in the operator's order (one all-gather at the
+    end)."""
+    if method not in METHODS:
+        raise ValueError(f"unknown method {method!r}; "
+                         f"available: {', '.join(METHODS)}")
+    p = wire.size
+    if b.shape[0] % p:
+        raise ValueError(f"n = {b.shape[0]} does not split over {p} ranks")
+    arrays, build, perm = partitioned_solver_ops(op, prec, p,
+                                                 reduction=reduction)
+    pre, post = _permutation_wrappers(perm)
+    ops = build(shard_arrays(arrays, p, wire.rank), wire)
+    nl = b.shape[0] // p
+    b_local = pre(b)[wire.rank * nl:(wire.rank + 1) * nl].contiguous()
+    res = METHODS[method](ops, b_local, kwargs)
+    return post(res._replace(x=wire.all_gather(res.x)))

@@ -1,5 +1,5 @@
-"""Staged ring reduction, in-process half (counterpart of
-``repro/parallel/reduction.py``, DESIGN.md §14).
+"""Staged ring reduction (counterpart of ``repro/parallel/reduction.py``,
+DESIGN.md §14).
 
 The paper hides one global reduction per iteration behind l iterations of
 work.  The staged form makes the reduction's progress explicit: the
@@ -15,38 +15,44 @@ the wait sums the gathered partials IN RANK ORDER.  Two properties follow:
     and the wait accumulates the fp32 partials into an fp64 compensated
     (Kahan) sum, so the error stays at one fp32 rounding per partial.
 
-This module holds the parts that need no wire: the configuration, the
-hop schedule, ``ordered_reduce``, the wire accounting and the single-device
-*ladder oracle* (``oracle_solver_ops``): the vector splits into
-``virtual_shards`` contiguous slices whose partials fill the gather buffer
-directly, so one device reproduces a staged P-shard run without a wire.
-The hops themselves (``staged_start``/``advance``/``wait`` of the JAX
-module) come with the torch.distributed backend.  Nothing here records a
+The ladder keeps its schedule apart from its transport.
+:func:`ladder_step` is a pure function: rank r's hops of one advance
+step, each a (send slot, receive slot, next rank, previous rank) tuple.
+:func:`staged_start`, :func:`staged_advance` and :func:`staged_wait` run
+it over a ``wire`` (``repro_torch.parallel.wire.Wire``: point-to-point
+messages between ranks of a ``torch.distributed`` group) and finish with
+:func:`ordered_reduce`.  The single-device *ladder oracle*
+(``oracle_solver_ops``) splits the vector into ``virtual_shards``
+contiguous slices whose partials fill the gather buffer directly, so one
+device reproduces a staged P-rank unfused run bit for bit without a wire.
+Its fused path is the JAX package's: the whole-vector superkernel's one
+partial in slot 0.  The bitwise reference of a fused run over ranks,
+whose slots hold each rank's own superkernel partial, is
+``parallel.distributed.rank_oracle_ops``.  Nothing here records a
 metric: the JAX module's ``backend_reduction_fallback`` gauge belongs to
-``obs/``, which is not ported.
+``obs/``, which is not ported, and no port backend declines the ladder.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-import warnings
+from typing import NamedTuple
 
 import torch
 
 from repro_torch.core.types import SolverOps, dot_block_rows
 
-__all__ = ["ReductionFallbackWarning", "StagedConfig", "hop_groups",
-           "ordered_reduce", "oracle_start", "oracle_partials",
-           "oracle_ops_pieces", "oracle_solver_ops",
+__all__ = ["StagedConfig", "Hop", "HOP_TAG", "hop_groups", "ladder_step",
+           "ordered_reduce", "staged_start", "staged_advance",
+           "staged_wait", "staged_ops_pieces", "oracle_start",
+           "oracle_partials", "oracle_gather", "oracle_ops_pieces",
+           "oracle_solver_ops",
            "resolve_backend_reduction", "hop_payload_bytes",
            "reduction_wire_bytes"]
 
-
-class ReductionFallbackWarning(UserWarning):
-    """A backend cannot run the requested staged ring ladder and
-    downgraded to the monolithic all-reduce: the arithmetic is honoured,
-    the overlap mechanism is lost."""
+# Message tag of ladder hop k is HOP_TAG + k (the halo's tags lie below).
+HOP_TAG = 1000
 
 
 @dataclasses.dataclass(frozen=True)
@@ -57,13 +63,13 @@ class StagedConfig:
     hops into that many advance steps (``hop_groups``); ``payload_dtype``
     is the wire dtype (None = the solver dtype); a payload narrower than
     the solver dtype switches the wait to fp64 compensated accumulation.
-    ``axis`` names the ring's process group (None = the local oracle).
+    The ring's ranks are those of the wire it runs over (or the oracle's
+    virtual shards).
     """
 
     n_shards: int
     stages: int = 2
     payload_dtype: torch.dtype | None = None
-    axis: str | None = None
 
     def __post_init__(self):
         if self.n_shards < 1:
@@ -128,6 +134,105 @@ def ordered_reduce(gathered: torch.Tensor, out_dtype: torch.dtype,
 
 
 # --------------------------------------------------------------------------
+# The ladder over a wire: a pure schedule and a transport.
+# --------------------------------------------------------------------------
+
+class Hop(NamedTuple):
+    """Rank r's part in ring hop ``k``: it sends gather slot ``send_slot``
+    to rank ``send_to`` and files what rank ``recv_from`` sends in slot
+    ``recv_slot``."""
+
+    k: int
+    send_slot: int
+    recv_slot: int
+    send_to: int
+    recv_from: int
+
+
+def ladder_step(rank: int, n_shards: int, stages: int,
+                step: int) -> list[Hop]:
+    """Rank ``rank``'s hops of advance step ``step`` (none past the last
+    step, nor on a ring of one).  Hop k forwards the partial received k
+    hops ago (origin rank r-k) one rank up the ring and files the one
+    arriving from below under its origin r-k-1, so after the P-1 hops
+    every rank holds every partial in its origin's slot: the JAX module's
+    ``staged_advance`` schedule, with the ppermute's send and receive
+    named."""
+    p = n_shards
+    if p == 1 or step >= stages:
+        return []
+    return [Hop(k, (rank - k) % p, (rank - k - 1) % p, (rank + 1) % p,
+                (rank - 1) % p)
+            for k in hop_groups(p, stages)[step]]
+
+
+def staged_start(partials: torch.Tensor, cfg: StagedConfig,
+                 rank: int) -> torch.Tensor:
+    """Park this rank's dot-block partials in a fresh (P, K[, s]) gather
+    buffer of the wire dtype, own slot filled: the posted, not yet
+    progressed Iallreduce.  Nothing goes on the wire here."""
+    wire = cfg.wire_dtype(partials.dtype)
+    buf = torch.zeros((cfg.n_shards,) + tuple(partials.shape), dtype=wire,
+                      device=partials.device)
+    buf[rank] = partials.to(wire)
+    return buf
+
+
+def staged_advance(handle: torch.Tensor, step: int, cfg: StagedConfig,
+                   wire) -> torch.Tensor:
+    """Run advance step ``step`` of the ladder on ``handle`` in place:
+    each of its hops is one send to the next rank and one receive from the
+    previous one (``wire.exchange``, tag ``HOP_TAG + k``).  Steps past the
+    ladder are a no-op, so solvers can advance unconditionally."""
+    for hop in ladder_step(wire.rank, cfg.n_shards, cfg.stages, step):
+        tag = HOP_TAG + hop.k
+        (got,) = wire.exchange(
+            [(hop.send_to, tag, handle[hop.send_slot])],
+            [(hop.recv_from, tag, handle[hop.recv_slot])], kind="hop")
+        handle[hop.recv_slot] = got
+    return handle
+
+
+def staged_wait(handle: torch.Tensor, advanced: int, cfg: StagedConfig,
+                out_dtype: torch.dtype, wire) -> torch.Tensor:
+    """Finish the ladder and combine (MPI_Wait).  ``advanced`` is how many
+    advance steps the solver already ran on this handle (p(l)-CG: l-1; a
+    blocking start and wait: 0); the rest run here, back to back, then the
+    gathered partials are summed in rank order."""
+    for step in range(advanced, cfg.stages):
+        handle = staged_advance(handle, step, cfg, wire)
+    return ordered_reduce(handle, out_dtype, cfg.compensated(out_dtype))
+
+
+def staged_ops_pieces(cfg: StagedConfig, wire, solver_dtype=None) -> dict:
+    """The ``SolverOps.create`` overrides of a staged rank: ``start``
+    computes the local partials with ``dot_block_rows`` (the expression
+    every substrate uses) and parks them; ``advance``/``wait`` drive the
+    ladder over ``wire``; ``handle_zeros`` is the (P, K) wire-dtype shape
+    of an in-flight D-ring slot; ``combine_partials`` parks the
+    superkernel's partials in the same ladder."""
+    out_default = torch.float64 if solver_dtype is None else solver_dtype
+
+    def start(mat, vec):
+        return staged_start(dot_block_rows(mat, vec), cfg, wire.rank)
+
+    def advance(handle, step):
+        return staged_advance(handle, step, cfg, wire)
+
+    def wait(handle, advanced=0):
+        out = handle.dtype if cfg.payload_dtype is None else out_default
+        return staged_wait(handle, advanced, cfg, out, wire)
+
+    def handle_zeros(shape, dtype, device=None):
+        return torch.zeros((cfg.n_shards,) + tuple(shape),
+                           dtype=cfg.wire_dtype(dtype), device=device)
+
+    return dict(dot_block_start=start, dot_block_advance=advance,
+                dot_block_wait=wait, handle_zeros=handle_zeros,
+                combine_partials=lambda p_: staged_start(p_, cfg, wire.rank))
+
+
+# --------------------------------------------------------------------------
 # The ladder oracle (single device, no wire).
 # --------------------------------------------------------------------------
 
@@ -163,6 +268,18 @@ def oracle_partials(partials: torch.Tensor,
                       device=partials.device)
     buf[0] = partials.to(wire)
     return buf
+
+
+def oracle_gather(partials: torch.Tensor,
+                  cfg: StagedConfig) -> torch.Tensor:
+    """``combine_partials`` of the fused ranks' reference: the (P, K)
+    partials of the virtual shards' superkernels
+    (``parallel.distributed.stacked_fused_factory``), one per slot, are the
+    gather buffer a staged P-rank run holds after its last hop."""
+    if partials.shape[0] != cfg.n_shards or partials.dim() != 2:
+        raise ValueError(f"oracle needs ({cfg.n_shards}, K) shard partials, "
+                         f"got shape {tuple(partials.shape)}")
+    return partials.to(cfg.wire_dtype(partials.dtype))
 
 
 def oracle_ops_pieces(cfg: StagedConfig, solver_dtype=None) -> dict:
@@ -209,37 +326,26 @@ def oracle_solver_ops(op, prec, cfg: StagedConfig) -> SolverOps:
 
 
 def resolve_backend_reduction(backend, reduction: str, stages: int, dtype,
-                              n_shards: int,
-                              axis: str | None) -> StagedConfig | None:
+                              n_shards: int) -> StagedConfig | None:
     """Reduction-request resolution shared by backend constructors.
 
-    Validates the mode, clamps ``stages`` into [1, P-1], honours the
-    backend's ``supports_staged_reduction`` flag (a declining backend
-    downgrades to monolithic, warns, and records why), and sets
-    ``reduction_mode`` / ``reduction_fallback`` on the backend.  Returns
-    the StagedConfig for the solver ops, or None for the monolithic
-    reduction."""
+    Validates the mode, clamps ``stages`` into [1, P-1] and sets
+    ``reduction_mode`` on the backend.  Returns the StagedConfig for the
+    solver ops, or None for the monolithic reduction.  Every port backend
+    runs the ladder (the local oracle and the torch.distributed wire), so
+    the JAX module's downgrade of a declining backend has no counterpart
+    here."""
     if reduction == "monolithic":
         backend.reduction_mode = "monolithic"
-        backend.reduction_fallback = None
         return None
     if reduction != "staged":
         raise ValueError(f"unknown reduction mode {reduction!r} "
                          "(want 'monolithic' or 'staged')")
-    if not type(backend).supports_staged_reduction:
-        backend.reduction_mode = "monolithic"
-        backend.reduction_fallback = (
-            f"backend {backend.name!r} does not support the staged ring "
-            "ladder; dot block downgraded to the monolithic all-reduce")
-        warnings.warn(backend.reduction_fallback, ReductionFallbackWarning,
-                      stacklevel=2)
-        return None
     backend.reduction_mode = "staged"
-    backend.reduction_fallback = None
     n_shards = max(n_shards, 1)
     stages = max(1, min(stages, max(n_shards - 1, 1)))
     return StagedConfig(n_shards=n_shards, stages=stages,
-                        payload_dtype=dtype, axis=axis)
+                        payload_dtype=dtype)
 
 
 # --------------------------------------------------------------------------

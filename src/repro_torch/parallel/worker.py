@@ -1,0 +1,224 @@
+"""One rank of a multi-rank run, driven by a JSON spec::
+
+    python -m repro_torch.parallel.worker SPEC.json
+
+run by every rank of a group that ``repro_torch.parallel.fabric.
+launch_fabric`` starts.  The spec names the backend (``device``,
+``pg_backend``), an output directory and a list of tasks:
+
+* ``{"kind": "solve", "name": ..., "operator": ..., "rhs": ...,
+  "sigmas": ..., "method": ..., "reduction": ..., "stages": ...,
+  "solver": {...}}``: one ``MultiprocessBackend.solve``, Jacobi
+  preconditioned.
+  ``operator`` is ``{"config": "laplace2d" | "icesheet3d"}`` (the
+  config's full size) or ``{"npz": path}`` (the fields of
+  ``convert.operator``, with ``kind``); ``use_kernel`` overrides the
+  operator's flag.  ``rhs`` and
+  ``sigmas`` are ``{"npz": path, "key": name}``.
+* ``{"kind": "decode_merge", "name": ..., "B", "H", "Hkv", "D", "S",
+  "kv_len", "seed", "block_s"}``: rank r's split of a KV cache of S
+  positions (``decode_split``), its ``decode_attention_stats``, and
+  ``merge_decode_shards`` over the wire.
+
+Each rank writes ``<name>.rank<r>.json`` (counts, kernel launches, wire
+traffic, times, digests of x and the history) into the output directory,
+and rank 0 also ``<name>.npz`` (x, res_history, norm0; or the merged
+decode output).
+"""
+
+from __future__ import annotations
+
+import hashlib
+import json
+import os
+import sys
+import time
+
+import numpy as np
+import torch
+
+__all__ = ["decode_split", "digest", "load_npz", "main"]
+
+
+def load_npz(path: str) -> dict:
+    with np.load(path, allow_pickle=False) as f:
+        return {k: f[k] for k in f.files}
+
+
+def _operator(spec: dict, device, cache: dict):
+    """The task's operator, built once per spec (``cache`` keeps the last
+    one, so consecutive tasks on one operator share it)."""
+    key = json.dumps(spec, sort_keys=True)
+    if key not in cache:
+        cache.clear()
+        cache[key] = _build_operator(spec, device)
+    return cache[key]
+
+
+def _build_operator(spec: dict, device):
+    from repro_torch import convert
+    from repro_torch.configs import icesheet3d, laplace2d
+    from repro_torch.configs.problems import build_operator
+
+    if "config" in spec:
+        mod = {"laplace2d": laplace2d, "icesheet3d": icesheet3d}[
+            spec["config"]]
+        op = build_operator(mod.config(), device=device)
+    else:
+        fields = load_npz(spec["npz"])
+        kind = str(fields.pop("kind"))
+        fields = {k: (v.item() if v.ndim == 0 else v)
+                  for k, v in fields.items()}
+        op = convert.operator(kind, device=device, **fields)
+    if "use_kernel" in spec:
+        import dataclasses
+
+        op = dataclasses.replace(op, use_kernel=bool(spec["use_kernel"]))
+    return op
+
+
+def _array(spec, device):
+    if spec is None:
+        return None
+    return torch.from_numpy(load_npz(spec["npz"])[spec["key"]]).to(device)
+
+
+def digest(t: torch.Tensor) -> str:
+    """sha256 of a tensor's bytes: equal digests, equal bits."""
+    return hashlib.sha256(t.detach().cpu().numpy().tobytes()).hexdigest()
+
+
+def _sync(device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def decode_split(rank: int, n_ranks: int, task: dict, device):
+    """Rank ``rank``'s inputs of a split-KV decode: q (B, H, D), from the
+    task's seed on every rank, and its k, v (B, S/P, Hkv, D) of the cache,
+    from the seed and the rank, all fp32; and its valid length, the
+    global ``kv_len`` clipped to its positions.  The same call in one
+    process gives every rank's split, for the single-process merge."""
+    b, h, hkv, d, s = (int(task[k]) for k in ("B", "H", "Hkv", "D", "S"))
+    sl = s // n_ranks
+    gen = torch.Generator(device=device)
+    gen.manual_seed(int(task["seed"]))
+    q = torch.randn((b, h, d), generator=gen, device=device)
+    gen.manual_seed(int(task["seed"]) * 1000 + 1 + rank)
+    k = torch.randn((b, sl, hkv, d), generator=gen, device=device)
+    v = torch.randn((b, sl, hkv, d), generator=gen, device=device)
+    kv = min(max(int(task["kv_len"]) - rank * sl, 0), sl)
+    return q, k, v, kv
+
+
+def _solve(be, task: dict, out_dir: str, cache: dict) -> dict:
+    from repro_torch.kernels import _build
+    from repro_torch.linalg import JacobiPrec
+    from repro_torch.linalg.partition import plan_for
+    from repro_torch.linalg.sparse import SparseOp
+
+    dev = be.device
+    t0 = time.perf_counter()
+    op = _operator(task["operator"], dev, cache)
+    prec = JacobiPrec.from_operator(op)
+    if isinstance(op, SparseOp):
+        plan_for(op, be.world_size)        # the partition, memoized
+    b = _array(task["rhs"], dev)
+    setup_s = time.perf_counter() - t0
+    kw = dict(task.get("solver", {}))
+    if task.get("sigmas") is not None:
+        kw["sigmas"] = _array(task["sigmas"], dev)
+    be.wire.reset_counts()
+    torch.distributed.barrier()
+    _sync(dev)
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    res = be.solve(op, b, method=task.get("method", "plcg"), prec=prec, **kw)
+    _sync(dev)
+    wall = time.perf_counter() - t0
+    launches = dict(_build.LAUNCHES)
+    iters = int(res.iters)
+    phases = sum(v for k, v in launches.items() if k.startswith("fused_iter"))
+    rec = {"task": task["name"], "rank": be.rank, "world": be.world_size,
+           "describe": be.describe(), "wire": be.hop_wire(),
+           "reduction": be.reduction_mode, "converged": bool(res.converged),
+           "iters": iters, "restarts": int(res.restarts),
+           "host_syncs": res.host_syncs, "setup_s": setup_s, "wall_s": wall,
+           "ms_per_update": 1e3 * wall / max(iters, 1),
+           "vector_phases": phases,
+           "ms_per_vector_phase": 1e3 * wall / phases if phases else None,
+           "launches": launches, "wire_counts": be.wire.counts(),
+           "x_sha256": digest(res.x),
+           "history_sha256": digest(res.res_history)}
+    if be.rank == 0:
+        rec["true_rel_residual"] = float(
+            torch.linalg.norm(b - op.apply(res.x)) / torch.linalg.norm(b))
+        np.savez(os.path.join(out_dir, task["name"] + ".npz"),
+                 x=res.x.cpu().numpy(),
+                 res_history=res.res_history.cpu().numpy(),
+                 norm0=res.norm0.cpu().numpy())
+    return rec
+
+
+def _decode_merge(be, task: dict, out_dir: str, cache: dict) -> dict:
+    from repro_torch.kernels import _build, ops as kops
+    from repro_torch.models.attention import merge_decode_shards
+
+    q, k, v, kv = decode_split(be.rank, be.world_size, task, be.device)
+    be.wire.reset_counts()
+    _build.reset_launches()
+    torch.distributed.barrier()
+    _sync(be.device)
+    t0 = time.perf_counter()
+    o, m, l = kops.decode_attention_stats(q, k, v, kv,
+                                          int(task.get("block_s", 512)))
+    out = merge_decode_shards(o, m, l, wire=be.wire)
+    _sync(be.device)
+    wall = time.perf_counter() - t0
+    rec = {"task": task["name"], "rank": be.rank, "world": be.world_size,
+           "kv_len_local": kv, "wall_s": wall,
+           "launches": dict(_build.LAUNCHES),
+           "wire_counts": be.wire.counts(), "out_sha256": digest(out)}
+    if be.rank == 0:
+        np.savez(os.path.join(out_dir, task["name"] + ".npz"),
+                 out=out.reshape(q.shape).cpu().numpy())
+    return rec
+
+
+def main(argv=None) -> int:
+    argv = sys.argv[1:] if argv is None else argv
+    with open(argv[0]) as f:
+        spec = json.load(f)
+    torch.set_num_threads(int(spec.get("threads", 1)))
+    import torch.distributed as dist
+
+    from repro_torch.parallel.backends import get_backend
+
+    bk = spec.get("backend", {})
+    out_dir = spec["out_dir"]
+    cache: dict = {}
+    try:
+        for task in spec["tasks"]:
+            be = get_backend(
+                "multiprocess", device=bk.get("device"),
+                pg_backend=bk.get("pg_backend"),
+                reduction=task.get("reduction", "monolithic"),
+                reduction_stages=int(task.get("stages", 2)),
+                reduction_dtype={None: None, "float32": torch.float32}[
+                    task.get("wire_dtype")])
+            run = {"solve": _solve, "decode_merge": _decode_merge}[
+                task["kind"]]
+            rec = run(be, task, out_dir, cache)
+            path = os.path.join(out_dir, f"{task['name']}.rank{be.rank}.json")
+            with open(path, "w") as f:
+                json.dump(rec, f)
+            print(json.dumps({k: rec[k] for k in ("task", "rank", "wall_s")}),
+                  flush=True)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

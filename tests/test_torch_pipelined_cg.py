@@ -185,7 +185,9 @@ def test_local_backend_and_refusals():
         # The staged ladder oracle is ported; an unknown mode is refused.
         (lambda: LocalBackend(reduction="banana", device="cpu"),
          ValueError),
-        (lambda: get_backend("shard_map"), NotImplementedError),
+        # shard_map has no counterpart: the port's multi-rank backend is
+        # "multiprocess", which the refusal names.
+        (lambda: get_backend("shard_map"), ValueError),
     ]:
         with pytest.raises(exc):
             bad()
