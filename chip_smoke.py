@@ -91,6 +91,21 @@ Phases, each printed as one JSON line; every phase raises on failure:
    plug-in each vector phase on every rank; each run reports its wire,
    ms per iteration, host syncs and halo and hop bytes per iteration.
 
+16. batched multi-RHS solves and the serve layer (``batched_serve_phase``,
+   after every earlier phase): ``LocalBackend.solve_batched`` for a slab
+   of 8 right-hand sides at phase 3's settings, column 0 phase 3's b
+   (every column converged, column 0's updates phase 3's; ms per slab
+   and per column iteration, host syncs, scalar-phase groups, a profiler
+   split) and at icesheet3d's; the slab fused against unfused for 200
+   updates; the slab forms of the superkernel (stencil and ELL),
+   ``stencil2d5``, ``stencil3d7`` and ``ell_spmv`` at s in {1, 8},
+   bitwise against their plain versions, timed beside s single-column
+   launches, their bounds and a library call; ``SolverService`` serving
+   16 requests at laplace2d 2048^2 through ``stencil2d5``'s slab form,
+   every solve held against the operator, and batched CG through the
+   ``stencil3d7`` and ``ell_spmv`` slab forms bitwise against the plain
+   operators; the ``BENCH_serve.json`` replay, column by column.
+
 Every kernel row of phases 8 and 9 carries its device time (profiler)
 beside its event time.
 
@@ -1409,6 +1424,386 @@ def distributed_phase(lap_op, lap_prec, lap_b, solve_kw, main, main_digest,
     return total
 
 
+SLAB_S = 8                      # batched_serve: the slab width
+SERVE_REQUESTS = 16             # batched_serve: requests served at 2048^2
+BATCH_SEED = 22                 # batched_serve: columns 1.. and the traces
+SLAB_HISTORY_RTOL = 1e-10       # batched_serve: slab fused vs unfused
+# histories (the superkernel sums a column's partials in its own order,
+# torch's unfused sum in another: 1.7e-12 apart on an H100 at 2048^2)
+
+
+def slab_kernel_checks(dev, randn, phase_scal, lap, ice, op, prec, iop,
+                       iprec, widths=(1, SLAB_S)) -> tuple[dict, dict]:
+    """The slab forms of the superkernel (stencil and ELL plug-ins),
+    ``stencil2d5``/``stencil3d7`` and ``ell_spmv`` at each slab width of
+    ``widths``, on the main path's shapes: bitwise against their plain
+    versions (the superkernel's partials within PARTIAL_BOUND), then their
+    device times, the single-column kernel's time times s, the bound and a
+    library yardstick where one exists.  Returns (errors, timings), keyed
+    ``<kernel>_s<width>``."""
+    import torch
+
+    from repro_torch.kernels import ell_spmv, fused_iter as fi
+    from repro_torch.kernels import ops as kops, ref, stencil_spmv
+
+    errs, timings, failed = {}, {}, []
+
+    def row(name, s, err, same, run, single, plain, nbytes, library=None):
+        errs[f"{name}_s{s}"] = err
+        if not same:
+            failed.append(f"{name}_s{s}")
+        t = {"s": s, "bitwise_equal": same, "max_abs_err": err,
+             "ms": cuda_ms(run), "device_ms": device_ms(run),
+             "single_column_ms": cuda_ms(single),
+             "plain_ms": cuda_ms(plain, reps=3),
+             "library_ms": None if library is None else cuda_ms(library),
+             **bound_fields(nbytes, 0.0)}
+        t["s_times_single_column_ms"] = s * t["single_column_ms"]
+        timings[f"{name}_s{s}"] = t
+
+    for s in widths:
+        # ---- the superkernel's slab form, stencil and ELL plug-ins
+        for name, sop, sprec in (("fused_iter_slab", op, prec),
+                                 ("fused_iter_ell_slab", iop, iprec)):
+            layout = fi.SlabLayout(l=2, RB=3)
+            fiter = kops.fused_iteration_factory(sop, sprec)(layout)
+            # each column at its own cycle index, fills and steady state
+            hosts = [fi.host_idx(layout, i) for i in
+                     [2 * layout.l + 3 + c for c in range(s - 1)] + [1]][:s]
+            idx = torch.tensor(hosts, dtype=torch.int32, device=dev)
+            scal = torch.stack([phase_scal(2) for _ in range(s)])
+            S = randn(s, layout.nv, sop.n) * 1e-3
+            S_p, d_p = fiter.plain(S, idx, scal)
+            S_k, d_k = fiter(S.clone(), idx, scal)
+            torch.cuda.synchronize()
+            same = bool(torch.equal(S_k, S_p))
+            part = 0.0
+            for c in range(s):
+                _, mat, u = ref.fused_iter_unfused(
+                    S[c], idx[c], scal[c], sop.apply, sprec.apply, layout)
+                scale = (mat.abs() * u.abs()[None, :]).sum(dim=1)
+                part = max(part, float(((d_k[c] - d_p[c]).abs()
+                                        / scale).max()))
+            same = same and part <= PARTIAL_BOUND
+            del S_k, S_p
+            nbytes = sum(fi.min_bytes(layout, h, sop.n, has_prec=False,
+                                      has_diag=False) for h in hosts) \
+                + 8 * sop.n + fiter.spmv.operand_bytes
+            row(name, s, part, same, lambda: fiter(S, idx, scal),
+                lambda: fiter(S[0], idx[0], scal[0]),
+                lambda: fiter.plain(S, idx, scal), nbytes)
+            timings[f"{name}_s{s}"]["partials_max_diff_over_abs_sum"] = part
+            del S
+        # ---- the stencils over a slab of s grids
+        g2 = randn(s, lap.nx, lap.ny)
+        w2 = torch.tensor([[0., -1., 0.], [-1., 4., -1.], [0., -1., 0.]],
+                          dtype=torch.float64, device=dev)[None, None]
+        got = stencil_spmv.stencil2d5(g2)
+        want = stencil_spmv.stencil2d5_plain(g2)
+        row("stencil2d5_slab", s, float((got - want).abs().max()),
+            bool(torch.equal(got, want)), lambda: stencil_spmv.stencil2d5(g2),
+            lambda: stencil_spmv.stencil2d5(g2[0]),
+            lambda: stencil_spmv.stencil2d5_plain(g2), 2 * g2.numel() * 8,
+            lambda: torch.nn.functional.conv2d(g2[:, None], w2, padding=1))
+        del g2, got, want
+        g3 = randn(s, ice.nx, ice.ny, ice.nz)
+        w3 = torch.zeros((3, 3, 3), dtype=torch.float64, device=dev)
+        w3[1, 1, 1] = 4.0 + 2.0 * ice.eps_z
+        w3[0, 1, 1] = w3[2, 1, 1] = w3[1, 0, 1] = w3[1, 2, 1] = -1.0
+        w3[1, 1, 0] = w3[1, 1, 2] = -ice.eps_z
+        got = stencil_spmv.stencil3d7(g3, ice.eps_z)
+        want = stencil_spmv.stencil3d7_plain(g3, ice.eps_z)
+        row("stencil3d7_slab", s, float((got - want).abs().max()),
+            bool(torch.equal(got, want)),
+            lambda: stencil_spmv.stencil3d7(g3, ice.eps_z),
+            lambda: stencil_spmv.stencil3d7(g3[0], ice.eps_z),
+            lambda: stencil_spmv.stencil3d7_plain(g3, ice.eps_z),
+            2 * g3.numel() * 8,
+            lambda: torch.nn.functional.conv3d(g3[:, None], w3[None, None],
+                                               padding=1))
+        del g3, got, want
+        # ---- ell_spmv over a slab of s vectors; cuSPARSE's CSR by an
+        # (n, s) block as the yardstick
+        X = randn(s, iop.n)
+        got = ell_spmv.ell_spmv(X, iop.cols, iop.vals)
+        want = ell_spmv.ell_spmv_plain(X, iop.cols, iop.vals)
+        keep = iop.vals != 0
+        crow = torch.zeros(iop.n + 1, dtype=torch.int64, device=dev)
+        crow[1:] = torch.cumsum(keep.sum(dim=1), 0)
+        csr = torch.sparse_csr_tensor(crow, iop.cols[keep].long(),
+                                      iop.vals[keep], size=(iop.n, iop.n))
+        Xt = X.T.contiguous()
+        row("ell_spmv_slab", s, float((got - want).abs().max()),
+            bool(torch.equal(got, want)),
+            lambda: ell_spmv.ell_spmv(X, iop.cols, iop.vals),
+            lambda: ell_spmv.ell_spmv(X[0], iop.cols, iop.vals),
+            lambda: ell_spmv.ell_spmv_plain(X, iop.cols, iop.vals),
+            iop.cols.numel() * 4 + iop.vals.numel() * 8 + 2 * X.numel() * 8,
+            lambda: torch.sparse.mm(csr, Xt))
+        timings[f"ell_spmv_slab_s{s}"]["library_max_abs_diff"] = float(
+            (torch.sparse.mm(csr, Xt).T - got).abs().max())
+        del X, Xt, got, want, csr
+        torch.cuda.empty_cache()
+    if failed:
+        raise AssertionError(f"slab kernels differ from their plain "
+                             f"versions: {failed}")
+    return errs, timings
+
+
+def batched_serve_phase(dev, gpu, randn, phase_scal, lap, ice, op, prec, b,
+                        solve_kw, main, main_digest, iop, iprec, ib,
+                        ice_kw, ice_main) -> tuple[dict, dict, dict]:
+    """Phase 16, batched multi-RHS solves and the serve layer on the card:
+
+    1. ``LocalBackend.solve_batched`` at laplace2d 2048^2 with phase 3's
+       settings (p(2)-CG, Jacobi, fused) for a slab of ``SLAB_S``
+       right-hand sides, column 0 phase 3's b: every column converges
+       below 10 tol, column 0 takes phase 3's updates (and is compared with
+       it bit for bit), with the slab's ms per slab iteration and per
+       column iteration, host syncs, scalar-phase groups and a profiler
+       split per slab iteration; the same for icesheet3d (the ELL
+       plug-in);
+    2. the same slab fused and unfused for 200 updates (iterations equal,
+       histories within SLAB_HISTORY_RTOL; bitwise reported);
+    3. the slab kernels at s in {1, SLAB_S} (``slab_kernel_checks``);
+    4. ``SolverService`` on ``Stencil2D5(use_kernel=True)`` 2048^2 with
+       Jacobi, s = SLAB_S, chunk_iters 64, under a ``VirtualClock``: a
+       seeded Poisson trace of ``SERVE_REQUESTS`` requests at tol 1e-6,
+       each retired solve held against the operator; and batched CG
+       through the ``stencil3d7`` and ``ell_spmv`` slab forms, bitwise
+       against the plain operators;
+    5. the replay of ``BENCH_serve.json`` (32 x 24, 128 arrivals at
+       1600/s, its two traffic classes), each ``replay_*`` column beside
+       the JSON's (a record, not a check).
+
+    Returns (launches, errors, timings) for the ``kernels`` line."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import pipelined_cg
+    from repro_torch.kernels import _build
+    from repro_torch.linalg import JacobiPrec, Stencil2D5, Stencil3D7
+    from repro_torch.parallel.backends import LocalBackend
+    from repro_torch.parallel.worker import digest
+    from repro_torch.serve import (AdmissionPolicy, SolverService,
+                                   TrafficClass, VirtualClock, poisson_trace,
+                                   replay)
+
+    t_phase = time.perf_counter()
+    be = LocalBackend(device=dev)
+    launches, failed = {}, []
+    rng = np.random.default_rng(BATCH_SEED)
+
+    def slab_of(first, n):
+        B = torch.empty((SLAB_S, n), dtype=torch.float64, device=dev)
+        B[0] = first
+        B[1:] = torch.tensor(rng.standard_normal((SLAB_S - 1, n)),
+                             device=dev)
+        return B
+
+    def true_rel(aop, B, X):
+        return (torch.linalg.norm(B - aop.apply(X), dim=1)
+                / torch.linalg.norm(B, dim=1)).tolist()
+
+    def batched(name, aop, aprec, B, kw, key, seq):
+        """One batched solve against ``seq``, the sequential solve of
+        column 0: its ms per vector phase, and its ms per update beside
+        the slab's (their ratio is the update rate's gain, every column's
+        updates counted once and a finished column's predicated slab
+        iterations not at all)."""
+        torch.cuda.synchronize()
+        _build.reset_launches()
+        pipelined_cg.SCALAR_GROUPS.clear()
+        t0 = time.perf_counter()
+        r = be.solve_batched(aop, B, prec=aprec, **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        lz = dict(_build.LAUNCHES)
+        slab_iters = lz.get(key, 0)
+        rel = true_rel(aop, B, r.x)
+        updates = int(r.iters.sum())
+        rec = {"iters": r.iters.tolist(), "restarts": r.restarts.tolist(),
+               "converged": r.converged.tolist(), "true_rel_residual": rel,
+               "slab_iterations": slab_iters, "wall_s": wall,
+               "ms_per_slab_iteration": 1e3 * wall / max(slab_iters, 1),
+               "ms_per_column_iteration": 1e3 * wall
+               / max(slab_iters * SLAB_S, 1),
+               "ms_per_update": 1e3 * wall / max(updates, 1),
+               "sequential_ms_per_vector_phase": seq["ms_per_iter"],
+               "sequential_ms_per_update": seq["ms_per_update"],
+               "update_rate_vs_sequential": seq["ms_per_update"]
+               / max(1e3 * wall / max(updates, 1), 1e-30),
+               "host_syncs": r.host_syncs,
+               "host_syncs_per_slab_iteration": r.host_syncs
+               / max(slab_iters, 1),
+               "scalar_phase_groups": {str(k): v for k, v in sorted(
+                   pipelined_cg.SCALAR_GROUPS.items())},
+               "max_scalar_phase_groups": max(pipelined_cg.SCALAR_GROUPS,
+                                              default=0),
+               "launches": lz}
+        launches[key] = slab_iters
+        if not (all(rec["converged"]) and max(rel) < 10 * TOL) \
+                or slab_iters == 0 or lz.get(key.replace("_slab", ""), 0):
+            failed.append(name)
+        return r, rec
+
+    out = {"phase": "batched_serve", "gpu": gpu, "s": SLAB_S}
+    # ---- 1. batched fused solves --------------------------------------
+    B = slab_of(b, op.n)
+    r, rec = batched("laplace2d", op, prec, B, solve_kw, "fused_iter_slab",
+                     dict(main, ms_per_update=1e3 * main["wall_s"]
+                          / max(main["iters"], 1)))
+    rec["column0_iters_vs_main"] = [rec["iters"][0], main["iters"]]
+    rec["column0_bitwise_vs_main"] = (digest(r.x[0]), digest(
+        r.res_history[0])) == main_digest
+    if rec["iters"][0] != main["iters"]:
+        failed.append("column 0 vs main_solve")
+    out["laplace2d"] = rec
+    del r
+    prof_kw = dict(solve_kw, maxit=100, tol=1e-30)
+    be.solve_batched(op, B, prec=prec, **prof_kw)
+    _build.reset_launches()
+    split = device_split(lambda: be.solve_batched(op, B, prec=prec,
+                                                  **prof_kw),
+                         ("fused_iter_kernel", "copy_row", "sum_partials"))
+    out["laplace2d_split"] = per_iter(split,
+                                      _build.LAUNCHES["fused_iter_slab"])
+    IB = slab_of(ib, iop.n)
+    r, rec = batched("icesheet3d", iop, iprec, IB, ice_kw,
+                     "fused_iter_ell_slab", ice_main)
+    out["icesheet3d"] = rec
+    del r
+
+    # ---- 2. fused against unfused, 200 updates ------------------------
+    short = dict(solve_kw, maxit=200, tol=1e-30)
+    r_f = be.solve_batched(op, B, prec=prec, **short)
+    r_u = be.solve_batched(op, B, prec=prec,
+                           **dict(short, fused_iteration=False))
+    h_f, h_u = r_f.res_history.cpu().numpy(), r_u.res_history.cpu().numpy()
+    ok = h_u >= 0
+    hist_rel = float(np.max(np.abs(h_f[ok] - h_u[ok]) / np.abs(h_u[ok])))
+    out["fused_vs_unfused_200"] = {
+        "iters": [r_f.iters.tolist(), r_u.iters.tolist()],
+        "history_max_rel_diff": hist_rel, "rtol": SLAB_HISTORY_RTOL,
+        "bitwise": bool(torch.equal(r_f.res_history, r_u.res_history)
+                        and torch.equal(r_f.x, r_u.x))}
+    if r_f.iters.tolist() != r_u.iters.tolist() or \
+            not hist_rel <= SLAB_HISTORY_RTOL:
+        failed.append("fused vs unfused")
+    del r_f, r_u, B, IB
+    torch.cuda.empty_cache()
+
+    # ---- 3. the slab kernels ------------------------------------------
+    errs, timings = slab_kernel_checks(dev, randn, phase_scal, lap, ice, op,
+                                       prec, iop, iprec)
+    out["kernels"] = timings
+
+    # ---- 4. serve at full width, and the other slab SPMVs on solves ----
+    kop = Stencil2D5(lap.nx, lap.ny, use_kernel=True, device=dev)
+    svc = SolverService(be, s=SLAB_S, method="cg", chunk_iters=64,
+                        maxit=20000, prec="jacobi", clock=VirtualClock())
+    svc.register_operator("laplace2d", kop)
+    trace = poisson_trace([TrafficClass("laplace2d", kop.n, tol=TOL)],
+                          rate_per_s=1000.0, n_requests=SERVE_REQUESTS,
+                          seed=BATCH_SEED)
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    rep = replay(svc, trace, iter_time_s=1e-3, tick_overhead_s=1e-3)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches["stencil2d5_slab"] = _build.LAUNCHES["stencil2d5_slab"]
+    rels = []
+    for rid, arr in enumerate(trace):
+        res = svc.results[rid]
+        bb = torch.as_tensor(arr.b, device=dev)
+        x = torch.as_tensor(res.x, device=dev)
+        rels.append(float(torch.linalg.norm(bb - op.apply(x))
+                          / torch.linalg.norm(bb)))
+    out["serve"] = {"method": "cg", "requests": SERVE_REQUESTS,
+                    "wall_s": wall, "report": rep.metrics(),
+                    "iters": [svc.results[i].iters
+                              for i in range(len(trace))],
+                    "true_rel_residual_max": max(rels),
+                    "stats": {k: v for k, v in svc.stats().items()
+                              if k != "setup_cache"},
+                    "launches": dict(_build.LAUNCHES)}
+    if rep.n_converged != SERVE_REQUESTS or not max(rels) < 10 * TOL \
+            or launches["stencil2d5_slab"] == 0:
+        failed.append("serve")
+    del svc
+
+    def kernel_cg(name, kop_, pop_, n, iters, key):
+        """Batched CG through a slab SPMV, bitwise against the plain
+        operator's batched CG."""
+        Bk = torch.tensor(rng.standard_normal((SLAB_S, n)), device=dev)
+        pj = JacobiPrec.from_operator(pop_)
+        kw = dict(method="cg", prec=pj, tol=TOL if iters is None
+                  else 1e-30, maxit=iters or 2000, unroll=16)
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        rk = be.solve_batched(kop_, Bk, **kw)
+        torch.cuda.synchronize()
+        wall_ = time.perf_counter() - t0
+        n_l = _build.LAUNCHES[key]
+        rp = be.solve_batched(pop_, Bk, **kw)
+        same = bool(torch.equal(rk.x, rp.x)
+                    and torch.equal(rk.res_history, rp.res_history))
+        launches[key] = n_l
+        out[name] = {"iters": rk.iters.tolist(), "launches": n_l,
+                     "wall_s": wall_, "bitwise_equal_to_plain": same}
+        if not same or n_l == 0:
+            failed.append(name)
+
+    kernel_cg("cg_stencil3d7_slab",
+              Stencil3D7(ice.nx, ice.ny, ice.nz, eps_z=ice.eps_z,
+                         use_kernel=True, device=dev),
+              Stencil3D7(ice.nx, ice.ny, ice.nz, eps_z=ice.eps_z,
+                         device=dev), ice.nx * ice.ny * ice.nz, 300,
+              "stencil3d7_slab")
+    kernel_cg("cg_ell_spmv_slab", dataclasses.replace(iop, use_kernel=True),
+              iop, iop.n, None, "ell_spmv_slab")
+
+    # ---- 5. the BENCH_serve.json replay --------------------------------
+    bop = Stencil2D5(32, 24, device=dev)
+    classes = [TrafficClass("bench", bop.n, weight=4.0, tol=1e-6,
+                            deadline_s=1.0),
+               TrafficClass("bench", bop.n, weight=1.0, tol=1e-10,
+                            deadline_s=4.0)]
+    btrace = poisson_trace(classes, rate_per_s=1600.0, n_requests=128,
+                           seed=0)
+
+    def bench_run(continuous):
+        svc_ = SolverService(be, s=8, method="plcg", l=2, chunk_iters=8,
+                             maxit=600, clock=VirtualClock(),
+                             admission=AdmissionPolicy(max_pending=64),
+                             max_replicas=2, replicate_watermark=1.0,
+                             continuous=continuous)
+        svc_.register_operator("bench", bop)
+        t0_ = time.perf_counter()
+        rep_ = replay(svc_, btrace, iter_time_s=1e-4, tick_overhead_s=1e-4)
+        return svc_, rep_, time.perf_counter() - t0_
+
+    svc_c, rep_c, wall_c = bench_run(True)
+    _svc_d, rep_d, wall_d = bench_run(False)
+    got = rep_c.metrics()
+    got["replay_slot_utilization_drain"] = rep_d.slot_utilization
+    st = svc_c.stats()
+    got["replay_workers"], got["replay_stolen"] = st["workers"], st["stolen"]
+    with open(os.path.join(ROOT, "BENCH_serve.json")) as f:
+        bench = json.load(f)
+    out["bench_serve_replay"] = {
+        "columns": {k: [v, bench.get(k)] for k, v in got.items()},
+        "columns_order": ["port (LocalBackend, this card)",
+                          "BENCH_serve.json (JAX, 8-device host mesh)"],
+        "wall_s": [wall_c, wall_d]}
+    out["seconds"] = time.perf_counter() - t_phase
+    emit(out)
+    if failed:
+        raise AssertionError(f"batched_serve failed: {failed}")
+    return launches, errs, timings
+
+
 def main() -> int:
     import torch
 
@@ -1745,7 +2140,8 @@ def main() -> int:
           "host_syncs_per_iter": ires.host_syncs / max(n_iter, 1),
           "true_rel_residual": true_rel, "launches": ice_launches})
     ice_main = {"iters": int(ires.iters), "restarts": int(ires.restarts),
-                "ms_per_iter": 1e3 * wall / max(n_iter, 1)}
+                "ms_per_iter": 1e3 * wall / max(n_iter, 1),
+                "ms_per_update": 1e3 * wall / max(int(ires.iters), 1)}
     if not bool(ires.converged) or not true_rel < 10 * TOL:
         raise AssertionError("icesheet solve did not converge")
     if n_iter == 0:
@@ -1964,6 +2360,24 @@ def main() -> int:
                                       main_digest, iop, iprec, ib, ice_kw,
                                       ice_main)
 
+    # ---- 16. batched multi-RHS solves and the serve layer ----------------
+    slab_launches, slab_err, slab_timings = batched_serve_phase(
+        dev, gpu, randn, phase_scal, lap, ice, op, prec, b, solve_kw, main,
+        main_digest, iop, iprec, ib, ice_kw, ice_main)
+    slab_kernels = (("fused_iter_slab", "fused_iter.cuh",
+                     "src/repro/kernels/fused_iter.py:262"),
+                    ("fused_iter_ell_slab", "fused_iter.cuh",
+                     "src/repro/kernels/fused_iter.py:229"),
+                    ("stencil2d5_slab", "stencil_spmv.cu",
+                     "src/repro/kernels/stencil_spmv.py:34"),
+                    ("stencil3d7_slab", "stencil_spmv.cu",
+                     "src/repro/kernels/stencil_spmv.py:78"),
+                    ("ell_spmv_slab", "ell_spmv.cu",
+                     "src/repro/kernels/ell_spmv.py:37"))
+    for name, _, _ in slab_kernels:
+        timings[name] = slab_timings[f"{name}_s{SLAB_S}"]
+        err[name] = slab_err[f"{name}_s{SLAB_S}"]
+
     # ---- contract lines --------------------------------------------------
     src_dir = "src/repro_torch/kernels/csrc/"
     kernels = []
@@ -2001,7 +2415,8 @@ def main() -> int:
         ("decode_attention", src_dir + "decode_attention.cu",
          "src/repro/kernels/decode_attention.py:65",
          ep_launches.get("decode_attention", 0)),
-    ]:
+    ] + [(name, src_dir + source, replaces, slab_launches.get(name, 0))
+         for name, source, replaces in slab_kernels]:
         t = timings[name]
         kernels.append({
             "name": name, "route": "cuda", "source": source,

@@ -52,54 +52,62 @@ class CgProgram(NamedTuple):
 
 def build(ops: SolverOps, b: torch.Tensor, tol: float = 1e-6,
           maxit: int = 1000) -> CgProgram:
+    """The CG program for ``b`` (N,), or for a slab (s, N) of right-hand
+    sides, one a row: the same arithmetic on every column, each scalar an
+    (s,) tensor and each blocking dot one (s,) start."""
     dtype = b.dtype
 
-    def init(x0: torch.Tensor) -> CgState:
+    def init(x0: torch.Tensor, b_=None) -> CgState:
+        """The state at x0; ``b_`` (default ``b``) is the right-hand side
+        of x0's columns."""
         x = x0.to(dtype)
-        r = b - ops.apply_a(x)
+        r = (b if b_ is None else b_) - ops.apply_a(x)
         u = ops.prec(r)
         gamma = dot1(ops, r, u)                   # reduction (init)
         norm0 = torch.sqrt(torch.abs(gamma))
-        hist = torch.full((maxit + 2,), -1.0, dtype=dtype, device=b.device)
-        hist[0] = norm0
+        hist = torch.full(norm0.shape + (maxit + 2,), -1.0, dtype=dtype,
+                          device=b.device)
+        hist[..., 0] = norm0
         return CgState(x=x, r=r, u=u, p=u, gamma=gamma,
-                       it=torch.zeros((), dtype=torch.int64, device=b.device),
+                       it=torch.zeros(norm0.shape, dtype=torch.int64,
+                                      device=b.device),
                        conv=norm0 == 0.0, hist=hist)
 
     def cond(st: CgState) -> torch.Tensor:
         return (~st.conv) & (st.it < maxit)
 
     def body(st: CgState, active: torch.Tensor | None = None) -> CgState:
-        """One iteration; ``active`` (a device bool) predicates ``x``,
-        ``it``, ``conv`` and ``hist``; None means unconditionally
-        active."""
-        norm0 = st.hist[0]
+        """One iteration; ``active`` (a device bool, (s,) for a slab)
+        predicates ``x``, ``it``, ``conv`` and ``hist``; None means
+        unconditionally active."""
+        norm0 = st.hist[..., 0]
         s = ops.apply_a(st.p)
         alpha = st.gamma / dot1(ops, s, st.p)     # reduction 1, a sync point
-        x = st.x + alpha * st.p
-        r = st.r - alpha * s
+        x = st.x + alpha[..., None] * st.p
+        r = st.r - alpha[..., None] * s
         u = ops.prec(r)
         gamma_new = dot1(ops, r, u)               # reduction 2, a sync point
         rnorm = torch.sqrt(torch.abs(gamma_new))
         conv = rnorm / norm0 < tol
         beta = gamma_new / st.gamma
-        p = u + beta * st.p
-        slot = (st.it + 1).clamp(max=maxit + 1).view(1)
+        p = u + beta[..., None] * st.p
+        slot = (st.it + 1).clamp(max=maxit + 1).unsqueeze(-1)
         if active is None:
             it = st.it + 1
         else:
-            x = torch.where(active, x, st.x)
+            x = torch.where(active[..., None], x, st.x)
             conv = torch.where(active, conv, st.conv)
-            rnorm = torch.where(active, rnorm, st.hist.gather(0, slot)[0])
+            rnorm = torch.where(active, rnorm,
+                                st.hist.gather(-1, slot)[..., 0])
             it = st.it + active.to(st.it.dtype)
-        st.hist.scatter_(0, slot, rnorm.view(1))
+        st.hist.scatter_(-1, slot, rnorm.unsqueeze(-1))
         return CgState(x=x, r=r, u=u, p=p, gamma=gamma_new, it=it,
                        conv=conv, hist=st.hist)
 
     def finish(st: CgState, host_syncs: int = 0) -> SolveResult:
         return SolveResult(
             x=st.x, iters=st.it, restarts=torch.zeros_like(st.it),
-            converged=st.conv, res_history=st.hist, norm0=st.hist[0],
+            converged=st.conv, res_history=st.hist, norm0=st.hist[..., 0],
             host_syncs=host_syncs)
 
     return CgProgram(init=init, body=body, cond=cond, finish=finish,

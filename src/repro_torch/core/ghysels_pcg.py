@@ -29,7 +29,8 @@ from typing import Callable, NamedTuple
 
 import torch
 
-from repro_torch.core.types import SolveResult, SolverOps, dot1, host_loop
+from repro_torch.core.types import (SolveResult, SolverOps, dot1, host_loop,
+                                    host_tensor)
 from repro_torch.device import as_rhs, as_tensor
 
 # Rows of the (NV_PCG, N) vector slab, in the JAX package's order.
@@ -45,7 +46,8 @@ class PcgState(NamedTuple):
     conv: torch.Tensor
     hist: torch.Tensor       # hist[0] is norm0 (the stopping reference)
     since_rr: torch.Tensor   # iterations since the last replacement
-    k: int                   # iterations the host has run (predicated too)
+    k: int | tuple           # iterations the host has run (predicated
+                             # too); a slab holds one per column
 
 
 class PcgProgram(NamedTuple):
@@ -63,25 +65,42 @@ class PcgProgram(NamedTuple):
     interrupt: Callable[[PcgState], PcgState] | None = None
 
 
+def _rows(S, *rows):
+    """Views of rows of an (NV_PCG, N) slab, or of every column's rows of
+    an (s, NV_PCG, N) one."""
+    return [S[..., r, :] for r in rows]
+
+
 def build(ops: SolverOps, b: torch.Tensor, tol: float = 1e-6,
           maxit: int = 1000, replace_every: int = 0) -> PcgProgram:
+    """The p-CG program for ``b`` (N,), or for a slab (s, N) of
+    right-hand sides, one a row: a (s, NV_PCG, N) slab, each scalar an (s,)
+    tensor and the dot block one (s, 2) start, with every column's
+    arithmetic that of its own sequential program."""
     dtype, dev = b.dtype, b.device
 
-    def init(x0: torch.Tensor) -> PcgState:
+    def init(x0: torch.Tensor, b_=None) -> PcgState:
+        """The state at x0; ``b_`` (default ``b``) is the right-hand side
+        of x0's columns."""
         x = x0.to(dtype)
-        r = b - ops.apply_a(x)
+        r = (b if b_ is None else b_) - ops.apply_a(x)
         u = ops.prec(r)
         w = ops.apply_a(u)
         norm0 = torch.sqrt(torch.abs(dot1(ops, r, u)))
-        hist = torch.full((maxit + 2,), -1.0, dtype=dtype, device=dev)
-        hist[0] = norm0
-        S = torch.zeros((NV_PCG, b.shape[0]), dtype=dtype, device=dev)
-        S[X_ROW], S[R_ROW], S[U_ROW], S[W_ROW] = x, r, u, w
-        one = torch.ones((), dtype=dtype, device=dev)
-        izero = torch.zeros((), dtype=torch.int64, device=dev)
+        batch = norm0.shape
+        hist = torch.full(batch + (maxit + 2,), -1.0, dtype=dtype,
+                          device=dev)
+        hist[..., 0] = norm0
+        S = torch.zeros(batch + (NV_PCG, b.shape[-1]), dtype=dtype,
+                        device=dev)
+        for row, v in ((X_ROW, x), (R_ROW, r), (U_ROW, u), (W_ROW, w)):
+            S[..., row, :] = v
+        one = torch.ones(batch, dtype=dtype, device=dev)
+        izero = torch.zeros(batch, dtype=torch.int64, device=dev)
         return PcgState(S=S, gamma=one, alpha=one.clone(), it=izero,
                         conv=norm0 == 0.0, hist=hist,
-                        since_rr=izero.clone(), k=0)
+                        since_rr=izero.clone(),
+                        k=(0,) * batch[0] if batch else 0)
 
     def cond(st: PcgState) -> torch.Tensor:
         return (~st.conv) & (st.it < maxit)
@@ -90,68 +109,84 @@ def build(ops: SolverOps, b: torch.Tensor, tol: float = 1e-6,
         """One iteration; ``active`` (a device bool) predicates what the
         replacement and ``finish`` read; None means unconditionally
         active."""
-        norm0 = st.hist[0]
+        norm0 = st.hist[..., 0]
         S = st.S
+        xr, rr, ur, wr, zr, qr, sr, pr = _rows(S, X_ROW, R_ROW, U_ROW, W_ROW,
+                                               Z_ROW, Q_ROW, S_ROW, P_ROW)
         # ONE fused reduction {(r, u), (w, u)}, started before and waited
         # after the iteration's own preconditioner and SPMV.
-        pending = ops.start(S[R_ROW:W_ROW + 1:W_ROW - R_ROW],  # rows r, w
-                           S[U_ROW])
-        m = ops.prec(S[W_ROW])
+        pending = ops.start(S[..., R_ROW:W_ROW + 1:W_ROW - R_ROW, :],
+                            ur)                          # rows r, w
+        m = ops.prec(wr)
         pending = ops.advance(pending, 0)
         nvec = ops.apply_a(m)
         gd = ops.wait(pending, advanced=1).to(dtype)
-        gamma, delta = gd[0], gd[1]
+        gamma, delta = gd[..., 0], gd[..., 1]
         # The first iteration (it == 0) is known on the host: the host
-        # checked cond before it, so it is always active.
-        if st.k == 0:
+        # checked cond before it, so it is always active.  A slab's
+        # columns start at different times: a mask where they differ.
+        ks = st.k if isinstance(st.k, tuple) else (st.k,)
+        if all(k == 0 for k in ks):
             beta = torch.zeros_like(gamma)
             denom = delta
-        else:
+        elif all(k > 0 for k in ks):
             beta = gamma / st.gamma
             denom = delta - beta * gamma / st.alpha
+        else:
+            first = host_tensor([k == 0 for k in ks], torch.bool, dev)
+            beta = torch.where(first, torch.zeros_like(gamma),
+                               gamma / st.gamma)
+            denom = torch.where(first, delta,
+                                delta - beta * gamma / st.alpha)
         alpha = gamma / denom
+        bv, av = beta[..., None], alpha[..., None]
         # In place, in the order that reads each old row before it is
         # rewritten: z, q and s from the old rows, p and x as temporaries
         # (both predicated below), then r, u and w.
-        torch.add(nvec, beta * S[Z_ROW], out=S[Z_ROW])
-        torch.add(m, beta * S[Q_ROW], out=S[Q_ROW])
-        torch.add(S[W_ROW], beta * S[S_ROW], out=S[S_ROW])
-        p = S[U_ROW] + beta * S[P_ROW]
-        x = S[X_ROW] + alpha * p
-        torch.sub(S[R_ROW], alpha * S[S_ROW], out=S[R_ROW])
-        torch.sub(S[U_ROW], alpha * S[Q_ROW], out=S[U_ROW])
-        torch.sub(S[W_ROW], alpha * S[Z_ROW], out=S[W_ROW])
+        torch.add(nvec, bv * zr, out=zr)
+        torch.add(m, bv * qr, out=qr)
+        torch.add(wr, bv * sr, out=sr)
+        p = ur + bv * pr
+        x = xr + av * p
+        torch.sub(rr, av * sr, out=rr)
+        torch.sub(ur, av * qr, out=ur)
+        torch.sub(wr, av * zr, out=wr)
         rnorm = torch.sqrt(torch.abs(gamma))  # ||r||_M before the update
         conv = rnorm / norm0 < tol
-        slot = (st.it + 1).clamp(max=maxit + 1).view(1)
+        slot = (st.it + 1).clamp(max=maxit + 1).unsqueeze(-1)
         if active is None:
-            S[X_ROW], S[P_ROW] = x, p
+            S[..., X_ROW, :], S[..., P_ROW, :] = x, p
             it, since_rr = st.it + 1, st.since_rr + 1
         else:
-            S[X_ROW] = torch.where(active, x, S[X_ROW])
-            S[P_ROW] = torch.where(active, p, S[P_ROW])
+            S[..., X_ROW, :] = torch.where(active[..., None], x, xr)
+            S[..., P_ROW, :] = torch.where(active[..., None], p, pr)
             gamma = torch.where(active, gamma, st.gamma)
             alpha = torch.where(active, alpha, st.alpha)
             conv = torch.where(active, conv, st.conv)
-            rnorm = torch.where(active, rnorm, st.hist.gather(0, slot)[0])
+            rnorm = torch.where(active, rnorm,
+                                st.hist.gather(-1, slot)[..., 0])
             inc = active.to(st.it.dtype)
             it, since_rr = st.it + inc, st.since_rr + inc
-        st.hist.scatter_(0, slot, rnorm.view(1))
+        st.hist.scatter_(-1, slot, rnorm.unsqueeze(-1))
+        k = tuple(k + 1 for k in st.k) if isinstance(st.k, tuple) \
+            else st.k + 1
         return PcgState(S=S, gamma=gamma, alpha=alpha, it=it, conv=conv,
-                        hist=st.hist, since_rr=since_rr, k=st.k + 1)
+                        hist=st.hist, since_rr=since_rr, k=k)
 
-    def replace(st: PcgState) -> PcgState:
+    def replace(st: PcgState, b_=None) -> PcgState:
         """Residual replacement: every recurred vector for its true value.
-        The scalars (gamma, alpha) are kept."""
+        The scalars (gamma, alpha) are kept.  ``b_`` (default ``b``) is the
+        right-hand side of these columns."""
         S = st.S
-        r = b - ops.apply_a(S[X_ROW])
+        r = (b if b_ is None else b_) - ops.apply_a(S[..., X_ROW, :])
         u = ops.prec(r)
         w = ops.apply_a(u)
-        s = ops.apply_a(S[P_ROW])
+        s = ops.apply_a(S[..., P_ROW, :])
         q = ops.prec(s)
         z = ops.apply_a(q)
-        S[R_ROW], S[U_ROW], S[W_ROW] = r, u, w
-        S[S_ROW], S[Q_ROW], S[Z_ROW] = s, q, z
+        for row, v in ((R_ROW, r), (U_ROW, u), (W_ROW, w), (S_ROW, s),
+                       (Q_ROW, q), (Z_ROW, z)):
+            S[..., row, :] = v
         return st._replace(S=S, since_rr=torch.zeros_like(st.since_rr))
 
     def needs_replace(st: PcgState) -> torch.Tensor:
@@ -159,9 +194,10 @@ def build(ops: SolverOps, b: torch.Tensor, tol: float = 1e-6,
 
     def finish(st: PcgState, host_syncs: int = 0) -> SolveResult:
         return SolveResult(
-            x=st.S[X_ROW].clone(), iters=st.it,
+            x=st.S[..., X_ROW, :].clone(), iters=st.it,
             restarts=torch.zeros_like(st.it), converged=st.conv,
-            res_history=st.hist, norm0=st.hist[0], host_syncs=host_syncs)
+            res_history=st.hist, norm0=st.hist[..., 0],
+            host_syncs=host_syncs)
 
     return PcgProgram(
         init=init, body=step, cond=cond, finish=finish, step=step,

@@ -21,12 +21,17 @@ import torch
 
 def dot_block_rows(mat: torch.Tensor, vec: torch.Tensor) -> torch.Tensor:
     """The fused dot block (K, N) x (N,) -> (K,) as an elementwise product
-    and a trailing-axis sum, the expression the JAX package pins.
+    and a trailing-axis sum, the expression the JAX package pins.  With a
+    leading slab axis, (s, K, N) x (s, N) -> (s, K): the s columns' blocks
+    in ONE reduction, one row a column (the JAX package's vmapped payload
+    is (K, s), the same numbers transposed).
 
     The port uses ``torch.sum``'s order, which is fixed for a given device
     and shape but differs from XLA's; port-versus-JAX comparisons of dots
-    therefore hold to a stated tolerance, not bitwise."""
-    return (mat * vec[None, :]).sum(dim=1)
+    therefore hold to a stated tolerance, not bitwise.  On the CPU the
+    slab form sums each column's rows in the single-column order
+    (tests/test_torch_batched.py holds them bitwise)."""
+    return (mat * vec[..., None, :]).sum(dim=-1)
 
 
 class SolveResult(NamedTuple):
@@ -123,8 +128,20 @@ class SolverOps:
 
 def dot1(ops: SolverOps, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Single global dot through the fused-block path, started and
-    immediately waited (a blocking reduction)."""
-    return ops.wait(ops.start(a[None, :], b))[0].to(a.dtype)
+    immediately waited (a blocking reduction).  For (s, N) slabs ``a`` and
+    ``b`` it is the s columns' dots, (s,), in one start."""
+    return ops.wait(ops.start(a[..., None, :], b))[..., 0].to(a.dtype)
+
+
+def host_tensor(values, dtype, device) -> torch.Tensor:
+    """A small host list as a tensor on ``device``.  On a card the copy
+    goes from pinned memory without waiting for the stream (a plain
+    ``torch.tensor(..., device="cuda")`` would synchronise the host)."""
+    t = torch.tensor(values, dtype=dtype)
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        return t.pin_memory().to(dev, non_blocking=True)
+    return t.to(dev)
 
 
 def host_loop(st, cond, step, unroll: int, needs_interrupt=None,

@@ -35,6 +35,15 @@
 // stage 32 rows twice in shared memory runs the direct kernel: one thread
 // a row, straight from device memory.
 //
+// Slab form: x is an (s, xs) slab of s vectors, one a row (the JAX
+// package vmaps the Pallas kernel over them), and y the (s, rows) result.
+// A tile's cols and vals are staged once and each thread sums its row for
+// all s vectors from the same shared copy, one after the other, so the
+// 12 bytes a slot that set the single-vector time are read once for s
+// products: the bound becomes cols + vals + s (x + y) bytes.  Each
+// vector's chain is the single-vector one, so every row of the result is
+// bitwise the single-vector launch's.
+//
 // Order of summation: the explicit left-to-right chain of ell_rowsum
 // (kernels/ref.py), not the Pallas kernel's .sum(axis=1).  With
 // --fmad=false the result is bitwise equal to the plain version and to
@@ -76,10 +85,11 @@ template <typename T>
 __global__ void __launch_bounds__(DIRECT_BLOCK)
     ell_spmv_direct(const T* __restrict__ x, const int* __restrict__ cols,
                     const T* __restrict__ vals, T* __restrict__ y,
-                    long long rows, int w) {
+                    long long rows, int w, int nvec, long long xs) {
   const long long r = (long long)blockIdx.x * DIRECT_BLOCK + threadIdx.x;
   if (r >= rows) return;
-  y[r] = row_sum(vals + r * w, cols + r * w, w, x);
+  for (int c = 0; c < nvec; ++c)
+    y[c * rows + r] = row_sum(vals + r * w, cols + r * w, w, x + c * xs);
 }
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -128,7 +138,8 @@ template <typename T>
 __global__ void __launch_bounds__(MAX_TILE_ROWS)
     ell_spmv_staged(const T* __restrict__ x, const int* __restrict__ cols,
                     const T* __restrict__ vals, T* __restrict__ y,
-                    long long rows, int w, int stages, long long bulk_tiles) {
+                    long long rows, int w, int stages, long long bulk_tiles,
+                    int nvec, long long xs) {
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ __align__(8) uint64_t bars[MAX_STAGES];
   const int rb = blockDim.x, tid = threadIdx.x;
@@ -183,7 +194,10 @@ __global__ void __launch_bounds__(MAX_TILE_ROWS)
       }
       __syncthreads();
     }
-    if (tid < nr) y[r0 + tid] = row_sum(tv + tid * w, tc + tid * w, w, x);
+    if (tid < nr)
+      for (int c = 0; c < nvec; ++c)
+        y[c * rows + r0 + tid] =
+            row_sum(tv + tid * w, tc + tid * w, w, x + c * xs);
     __syncthreads();  // every thread is done with this stage
     const long long tn = t + (long long)stages * gridDim.x;
     if (tid == 0 && tn < bulk_tiles) {
@@ -225,11 +239,14 @@ int occupancy(int threads, int smem_bytes, int* blocks) {
 template <typename T>
 int launch(int staged, const void* x, const void* cols, const void* vals,
            void* y, long long rows, int w, int tile_rows, int stages,
-           long long bulk_tiles, int grid, int smem_bytes, cudaStream_t st) {
+           long long bulk_tiles, int grid, int smem_bytes, int s,
+           long long xs, cudaStream_t st) {
+  if (s < 1 || xs < rows) return (int)cudaErrorInvalidValue;
   if (!staged) {
     const long long nb = (rows + DIRECT_BLOCK - 1) / DIRECT_BLOCK;
     ell_spmv_direct<T><<<(unsigned)nb, DIRECT_BLOCK, 0, st>>>(
-        (const T*)x, (const int*)cols, (const T*)vals, (T*)y, rows, w);
+        (const T*)x, (const int*)cols, (const T*)vals, (T*)y, rows, w, s,
+        xs);
     return (int)cudaGetLastError();
   }
   if (tile_rows < 32 || tile_rows > MAX_TILE_ROWS || tile_rows % 32 ||
@@ -241,7 +258,7 @@ int launch(int staged, const void* x, const void* cols, const void* vals,
   if (e != cudaSuccess) return (int)e;
   ell_spmv_staged<T><<<grid, tile_rows, smem_bytes, st>>>(
       (const T*)x, (const int*)cols, (const T*)vals, (T*)y, rows, w, stages,
-      bulk_tiles);
+      bulk_tiles, s, xs);
   return (int)cudaGetLastError();
 }
 
@@ -255,15 +272,20 @@ extern "C" int ell_spmv_occupancy(int is_f32, int threads, int smem_bytes,
                 : occupancy<double>(threads, smem_bytes, blocks);
 }
 
+// `s` vectors of x, `xs` elements apart (s = 1: one vector), into the
+// (s, rows) result y.
 extern "C" int ell_spmv_launch(int is_f32, int staged, const void* x,
                                const void* cols, const void* vals, void* y,
                                long long rows, int w, int tile_rows,
                                int stages, long long bulk_tiles, int grid,
-                               int smem_bytes, void* stream) {
+                               int smem_bytes, int s, long long xs,
+                               void* stream) {
   if (rows == 0) return 0;
   cudaStream_t st = (cudaStream_t)stream;
   return is_f32 ? launch<float>(staged, x, cols, vals, y, rows, w, tile_rows,
-                                stages, bulk_tiles, grid, smem_bytes, st)
+                                stages, bulk_tiles, grid, smem_bytes, s, xs,
+                                st)
                 : launch<double>(staged, x, cols, vals, y, rows, w, tile_rows,
-                                 stages, bulk_tiles, grid, smem_bytes, st);
+                                 stages, bulk_tiles, grid, smem_bytes, s, xs,
+                                 st);
 }

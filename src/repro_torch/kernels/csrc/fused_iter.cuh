@@ -56,6 +56,16 @@
 //   neighbours' boundary planes (zero at the domain's ends), so there is no
 //   domain-edge test on x; ELL as [own | from prev | from next] through the
 //   partition plan's remapped column indices.
+// * Slab form (the JAX package vmaps the Pallas kernel over a slab of s
+//   right-hand sides): a second grid dimension over the s columns of an
+//   (s, NV, N) slab, one launch.  Column c reads its own idx and scal rows
+//   (each column is at its own cycle index), its own ring-top copy and
+//   writes its own partials; the preconditioner's inverse diagonal, the
+//   diagonal and the ELL cols/vals are shared.  A column's blocks and its
+//   partials sum are the single-column launch's, in the same order, so
+//   every column's rows and dots are bitwise those of a single-column
+//   launch.  s = 1 is the single-column launch.  The bound is s times the
+//   slab bytes of one column plus the shared operator data once.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -183,10 +193,14 @@ __device__ __forceinline__ double spmv_at(const Spmv& sp, long long j,
   }
 }
 
+// The ring-top row of column blockIdx.y to that column's copy.
 __global__ void copy_row(const double* __restrict__ S, long long n,
-                         long long ld, const int* __restrict__ idx, int pos,
+                         long long ld, long long cs,
+                         const int* __restrict__ idx, int idx_size, int pos,
                          double* __restrict__ z) {
-  const long long r = idx[pos];
+  S += blockIdx.y * cs;
+  z += blockIdx.y * n;
+  const long long r = idx[(long long)blockIdx.y * idx_size + pos];
   for (long long j = (long long)blockIdx.x * blockDim.x + threadIdx.x; j < n;
        j += (long long)gridDim.x * blockDim.x)
     z[j] = S[r * ld + j];
@@ -389,18 +403,31 @@ __device__ __forceinline__ void block_partials(double* red, int nd,
     part[(long long)k * gridDim.x + blockIdx.x] = red[k * BLOCK];
 }
 
+// Column blockIdx.y's slab, index and scalar rows, operand and partials
+// (the kernel's own pointer arguments, moved in place).
+#define FI_TO_COLUMN(LL)                                 \
+  do {                                                   \
+    const long long c_ = blockIdx.y;                     \
+    S += c_ * cs;                                        \
+    idx_g += c_ * (8 * (LL) + 9);                        \
+    scal_g += c_ * (8 + (LL));                           \
+    if (sp.z != nullptr) sp.z += c_ * zs;                \
+    part += c_ * (2 * (LL) + 1) * (long long)gridDim.x;  \
+  } while (0)
+
 template <int KIND, int L, bool STABLE, bool PREC>
 __global__ void __launch_bounds__(BLOCK)
-    fused_iter_kernel(double* S, long long n, long long ld, int rb,
-                      const int* __restrict__ idx_g,
+    fused_iter_kernel(double* S, long long n, long long ld, long long cs,
+                      int rb, const int* __restrict__ idx_g,
                       const double* __restrict__ scal_g, Spmv sp,
-                      const double* __restrict__ inv_diag,
+                      long long zs, const double* __restrict__ inv_diag,
                       double* __restrict__ part) {
   constexpr int ND = 2 * L + 1;
   __shared__ int idx[8 * L + 9];
   __shared__ double scal[8 + L];
   __shared__ int store_fill[L], store_rec[L];
   __shared__ double red[ND * BLOCK];
+  FI_TO_COLUMN(L);
   block_setup(L, idx_g, scal_g, idx, scal, store_fill, store_rec);
   RegVals<L> v;
   if ((long long)blockIdx.x * BLOCK + threadIdx.x < n) {
@@ -419,13 +446,13 @@ __global__ void __launch_bounds__(BLOCK)
 // the per-thread values in dynamic shared memory (rt_smem_bytes(l)).
 template <int KIND, bool STABLE, bool PREC>
 __global__ void __launch_bounds__(BLOCK)
-    fused_iter_kernel_rt(double* S, long long n, long long ld, int rb,
-                         int L,
-                         const int* __restrict__ idx_g,
+    fused_iter_kernel_rt(double* S, long long n, long long ld, long long cs,
+                         int rb, int L, const int* __restrict__ idx_g,
                          const double* __restrict__ scal_g, Spmv sp,
-                         const double* __restrict__ inv_diag,
+                         long long zs, const double* __restrict__ inv_diag,
                          double* __restrict__ part) {
   const int ND = 2 * L + 1;
+  FI_TO_COLUMN(L);
   extern __shared__ double smem[];
   double* const red = smem;                        // [ND][BLOCK]
   double* const fill_val = red + ND * BLOCK;       // [L][BLOCK]
@@ -445,13 +472,16 @@ __global__ void __launch_bounds__(BLOCK)
   block_partials<0>(red, ND, part);
 }
 
-// Row k of the (nd, nb) per-block partials summed in a fixed order: thread t
-// adds blocks t, t + BLOCK, ... in index order, then a pairwise tree.
+// Row k of column blockIdx.y's (nd, nb) per-block partials summed in a
+// fixed order: thread t adds blocks t, t + BLOCK, ... in index order, then
+// a pairwise tree.
 __global__ void __launch_bounds__(BLOCK)
     sum_partials(const double* __restrict__ part, int nb,
                  double* __restrict__ out) {
   __shared__ double red[BLOCK];
   const int k = blockIdx.x, tid = threadIdx.x;
+  part += (long long)blockIdx.y * gridDim.x * nb;
+  out += (long long)blockIdx.y * gridDim.x;
   double acc = 0.0;
   for (int b = tid; b < nb; b += BLOCK) acc = acc + part[(long long)k * nb + b];
   red[tid] = acc;
@@ -467,15 +497,18 @@ struct Args {
   double* S;
   long long n;
   long long ld;  // row stride of S (n for a whole slab, more for a column block)
+  int s;         // columns of the slab form (1: one column)
+  long long cs;  // column stride of S: the distance between two columns' slabs
   int rb;
-  const int* idx;
-  const double* scal;
+  const int* idx;     // (s, 8l + 9)
+  const double* scal; // (s, 8 + l)
   Spmv sp;
-  double* zbuf;
+  double* zbuf;       // (s, zs): each column's ring-top copy or halo operand
+  long long zs;
   const double* inv_diag;
-  double* part;
+  double* part;       // (s, 2l + 1, nblocks)
   int nblocks;
-  double* partials;
+  double* partials;   // (s, 2l + 1)
   cudaStream_t stream;
 };
 
@@ -488,20 +521,23 @@ void set_operand(Args& a, int l) {
     a.sp.z = a.zbuf;
   } else if constexpr (KIND != SPMV_DIAG) {
     const long long want = (a.n + BLOCK - 1) / BLOCK;
-    const int grid = (int)(want < 65535 ? want : 65535);
-    copy_row<<<grid, BLOCK, 0, a.stream>>>(a.S, a.n, a.ld, a.idx, 5 * l,
-                                           a.zbuf);
+    const dim3 grid((unsigned)(want < 65535 ? want : 65535), (unsigned)a.s);
+    copy_row<<<grid, BLOCK, 0, a.stream>>>(a.S, a.n, a.ld, a.cs, a.idx,
+                                           8 * l + 9, 5 * l, a.zbuf);
     a.sp.z = a.zbuf;
+    a.zs = a.n;
   }
 }
 
 template <int KIND, int L, bool STABLE, bool PREC>
 cudaError_t launch(Args a) {
   set_operand<KIND>(a, L);
-  fused_iter_kernel<KIND, L, STABLE, PREC><<<a.nblocks, BLOCK, 0, a.stream>>>(
-      a.S, a.n, a.ld, a.rb, a.idx, a.scal, a.sp, a.inv_diag, a.part);
-  sum_partials<<<2 * L + 1, BLOCK, 0, a.stream>>>(a.part, a.nblocks,
-                                                   a.partials);
+  const dim3 grid((unsigned)a.nblocks, (unsigned)a.s);
+  fused_iter_kernel<KIND, L, STABLE, PREC><<<grid, BLOCK, 0, a.stream>>>(
+      a.S, a.n, a.ld, a.cs, a.rb, a.idx, a.scal, a.sp, a.zs, a.inv_diag,
+      a.part);
+  sum_partials<<<dim3(2 * L + 1, a.s), BLOCK, 0, a.stream>>>(
+      a.part, a.nblocks, a.partials);
   return cudaGetLastError();
 }
 
@@ -527,10 +563,11 @@ cudaError_t launch_rt(Args a, int l) {
   }
   set_operand<KIND>(a, l);
   fused_iter_kernel_rt<KIND, STABLE, PREC>
-      <<<a.nblocks, BLOCK, (size_t)smem, a.stream>>>(
-          a.S, a.n, a.ld, a.rb, l, a.idx, a.scal, a.sp, a.inv_diag, a.part);
-  sum_partials<<<2 * l + 1, BLOCK, 0, a.stream>>>(a.part, a.nblocks,
-                                                   a.partials);
+      <<<dim3(a.nblocks, a.s), BLOCK, (size_t)smem, a.stream>>>(
+          a.S, a.n, a.ld, a.cs, a.rb, l, a.idx, a.scal, a.sp, a.zs,
+          a.inv_diag, a.part);
+  sum_partials<<<dim3(2 * l + 1, a.s), BLOCK, 0, a.stream>>>(
+      a.part, a.nblocks, a.partials);
   return cudaGetLastError();
 }
 
@@ -560,20 +597,26 @@ cudaError_t dispatch(int l, bool stable, bool prec, const Args& a) {
 // cudaGetLastError(); for a halo plug-in `zbuf` is the prepared operand.
 // `ld` is the slab's row stride: n for a whole slab, the wider slab's row
 // for a block of its columns (a virtual shard's, updated in place).
+// `s` columns, `cs` elements apart in S (s = 1: one column); idx, scal,
+// zbuf (`zs` apart: n for the ring-top copies), part and partials hold one
+// row per column.
 // NAME_smem_optin writes the current device's largest dynamic shared memory
 // a block can opt in to, which bounds the runtime-depth kernel.
 #define FI_DEFINE_ENTRY(NAME, KIND)                                          \
   extern "C" int NAME(int l, int stable, int prec, void* S, long long n,     \
-                      long long ld, int rb, const void* idx,                 \
-                      const void* scal, void* zbuf,                          \
-                      const void* inv_diag, void* part, int nblocks,         \
-                      void* partials, int nx, int ny, int nz, double coef,   \
-                      const void* d, const void* cols, const void* vals,     \
-                      int w, void* stream) {                                 \
+                      long long ld, int s, long long cs, int rb,             \
+                      const void* idx, const void* scal, void* zbuf,         \
+                      long long zs, const void* inv_diag, void* part,        \
+                      int nblocks, void* partials, int nx, int ny, int nz,   \
+                      double coef, const void* d, const void* cols,          \
+                      const void* vals, int w, void* stream) {               \
+    if (s < 1 || s > 65535) return (int)cudaErrorInvalidValue;               \
     fi::Args a;                                                              \
     a.S = (double*)S;                                                        \
     a.n = n;                                                                 \
     a.ld = ld;                                                               \
+    a.s = s;                                                                 \
+    a.cs = cs;                                                               \
     a.rb = rb;                                                               \
     a.idx = (const int*)idx;                                                 \
     a.scal = (const double*)scal;                                            \
@@ -587,6 +630,7 @@ cudaError_t dispatch(int l, bool stable, bool prec, const Args& a) {
     a.sp.vals = (const double*)vals;                                         \
     a.sp.w = w;                                                              \
     a.zbuf = (double*)zbuf;                                                  \
+    a.zs = zs;                                                               \
     a.inv_diag = (const double*)inv_diag;                                    \
     a.part = (double*)part;                                                  \
     a.nblocks = nblocks;                                                     \

@@ -7,6 +7,12 @@ long) and runs the plain PyTorch version ``ell_spmv_plain`` on CPU
 tensors.  Any other device raises.  The result has ``vals``' dtype; ``x``
 is cast to it first, as the plain version does.
 
+``x`` may be an (s, n) slab of s vectors, one a request (the JAX package
+vmaps its kernel over the slab): one launch reads each tile of cols and
+vals once for all s vectors and returns (s, R), each row bitwise the
+single-vector result.  A launch counts under ``ell_spmv`` for one vector
+and ``ell_spmv_slab`` for a slab.
+
 The kernel stages tiles of rows through shared memory; :func:`plan` is its
 launch plan (tile rows, ring stages, which tiles go by bulk copy, grid),
 chosen from the operator alone.
@@ -33,7 +39,8 @@ _SIGS = {
                         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                         ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
                         ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
-                        ctypes.c_int, ctypes.c_void_p],
+                        ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
+                        ctypes.c_void_p],
     "ell_spmv_occupancy": [ctypes.c_int, ctypes.c_int, ctypes.c_int,
                            ctypes.POINTER(ctypes.c_int)],
 }
@@ -95,15 +102,16 @@ def _checked(x: torch.Tensor, cols: torch.Tensor, vals: torch.Tensor):
         raise ValueError(f"cols has dtype {cols.dtype}, expected int32")
     if vals.dtype not in (torch.float64, torch.float32):
         raise ValueError(f"unsupported dtype {vals.dtype} (want fp64 or fp32)")
-    if x.dim() != 1 or x.shape[0] < cols.shape[0]:
-        raise ValueError(f"x of shape {tuple(x.shape)} is shorter than the "
-                         f"{cols.shape[0]} rows")
+    if x.dim() not in (1, 2) or x.shape[-1] < cols.shape[0] \
+            or x.dim() == 2 and x.shape[0] < 1:
+        raise ValueError(f"x of shape {tuple(x.shape)} is not a vector or a "
+                         f"slab of vectors at least {cols.shape[0]} long")
     for name, t in (("x", x), ("cols", cols), ("vals", vals)):
         if t.device != cols.device:
             raise ValueError(f"{name} is on {t.device}, cols on {cols.device}")
         if not t.is_contiguous():
             raise ValueError(f"{name} is not contiguous")
-    if cols.numel() >= 2 ** 31 or x.numel() >= 2 ** 31:
+    if cols.numel() >= 2 ** 31 or x.shape[-1] >= 2 ** 31:
         raise ValueError("operator too large for the kernel's int32 columns")
 
 
@@ -137,7 +145,8 @@ def _plan_for(lib, cols: torch.Tensor, vals: torch.Tensor) -> EllPlan:
 
 def ell_spmv(x: torch.Tensor, cols: torch.Tensor,
              vals: torch.Tensor) -> torch.Tensor:
-    """y[r] = sum_s vals[r, s] * x[cols[r, s]], slots summed left to right."""
+    """y[r] = sum_s vals[r, s] * x[cols[r, s]], slots summed left to right;
+    for an (s, n) slab ``x``, the same for each row of it, (s, R)."""
     if cols.device.type == "cpu":
         return ell_spmv_plain(x, cols, vals)
     if cols.device.type != "cuda":
@@ -150,15 +159,18 @@ def ell_spmv(x: torch.Tensor, cols: torch.Tensor,
 
 def _launch(lib, p: EllPlan, x: torch.Tensor, cols: torch.Tensor,
             vals: torch.Tensor) -> torch.Tensor:
-    """One launch of plan ``p`` on checked CUDA tensors."""
+    """One launch of plan ``p`` on checked CUDA tensors (``x`` a vector or
+    an (s, n) slab)."""
     dev = vals.device
-    out = torch.empty(p.rows, dtype=vals.dtype, device=dev)
+    out = torch.empty(x.shape[:-1] + (p.rows,), dtype=vals.dtype, device=dev)
+    s = x.shape[0] if x.dim() == 2 else 1
     with torch.cuda.device(dev):
         rc = lib.ell_spmv_launch(
             int(vals.dtype == torch.float32), int(p.staged),
             x.data_ptr(), cols.data_ptr(), vals.data_ptr(), out.data_ptr(),
             p.rows, p.w, p.tile_rows, p.stages, p.bulk_tiles, p.grid,
-            p.smem_bytes, torch.cuda.current_stream(dev).cuda_stream)
-    _build.LAUNCHES["ell_spmv"] += 1
+            p.smem_bytes, s, x.shape[-1],
+            torch.cuda.current_stream(dev).cuda_stream)
+    _build.LAUNCHES["ell_spmv" if x.dim() == 1 else "ell_spmv_slab"] += 1
     _build.check(rc, "ell_spmv")
     return out

@@ -16,6 +16,17 @@ plug-in, ``fused_iter_halo`` and ``fused_iter_ell_halo`` for the
 halo-extended plug-ins of a shard, and ``fused_iter_runtime_l`` for any
 plug-in at a depth l > ``LMAX`` (the runtime-depth kernel).
 
+The same ``fiter`` takes the SLAB form of a batched solve (the JAX
+package vmaps its superkernel over the slab): ``S`` (s, NV, N), ``idx``
+(s, IX) and ``scal`` (s, IS), one row a column, each column at its own
+cycle index, returning (s, 2l+1) partials from ONE launch whose second
+grid dimension runs over the columns.  Each column's rows and partials are
+bitwise those of a single-column launch on that column.  Its plain
+version is ``ref.fused_iter_ref_slab`` (the single-column plain version
+applied to each column), and a launch counts under
+``launch_key(kind, l, slab=True)`` (the single-column key + ``_slab``).
+Single-device plug-ins only: batched solves over ranks are not ported.
+
 Plug-ins come in two forms, as in the JAX package: single-device (the
 operand is the ring-top row itself) and halo-extended (a shard of a row
 partition: ``prepare(z_top)`` builds the extended operand outside the
@@ -32,7 +43,8 @@ from typing import Callable
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.ref import ell_rowsum, fused_iter_ref
+from repro_torch.kernels.ref import (ell_rowsum, fused_iter_ref,
+                                     fused_iter_ref_slab)
 
 
 # ---------------------------------------------------------------- layout --
@@ -304,11 +316,14 @@ def ell_spmv(cols: torch.Tensor, vals: torch.Tensor,
 
 _ARGTYPES = [ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
              ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int,
+             ctypes.c_longlong, ctypes.c_int,
              ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+             ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p,
+             ctypes.c_int, ctypes.c_void_p,
              ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_double,
              ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
              ctypes.c_void_p]
+MAX_SLAB = 65535     # columns of one slab launch (the second grid dimension)
 BLOCK = 256          # threads per block, fixed in csrc/fused_iter.cuh
 LMAX = 8             # deepest pipeline instantiated at compile time
 
@@ -328,16 +343,18 @@ def deepest_runtime_l(smem_optin: int) -> int:
                                                      - runtime_smem_bytes(0))
 
 
-def launch_key(kind: str, l: int) -> str:
+def launch_key(kind: str, l: int, slab: bool = False) -> str:
     """The ``_build.LAUNCHES`` key one launch of plug-in ``kind`` at depth
-    ``l`` counts under."""
+    ``l`` counts under; ``slab`` for the slab form."""
     if l > LMAX:
-        return "fused_iter_runtime_l"
-    if kind in ("ell", "ell_halo"):
-        return "fused_iter_" + kind
-    if kind in HALO_KINDS:
-        return "fused_iter_halo"
-    return "fused_iter"
+        key = "fused_iter_runtime_l"
+    elif kind in ("ell", "ell_halo"):
+        key = "fused_iter_" + kind
+    elif kind in HALO_KINDS:
+        key = "fused_iter_halo"
+    else:
+        key = "fused_iter"
+    return key + "_slab" if slab else key
 
 
 def smem_optin(lib_name: str, device: torch.device) -> int:
@@ -390,19 +407,29 @@ def build_fused_iteration(
                          "(want 'ghysels' or 'stable')")
     check_z_top_not_written(layout)
     n = spmv.n
-    count_key = launch_key(spmv.kind, l)
     name = "fused_iter_" + spmv.kind
     prec = (lambda v: v) if inv_diag is None else \
         (lambda v: inv_diag.to(v.dtype) * v)
 
     def plain(S, idx, scal):
         host = idx.tolist() if isinstance(idx, torch.Tensor) else list(idx)
-        if host[IX["z_top"]] in written_rows(layout, host):
-            raise ValueError("z_top row is among the rows this phase writes")
-        return fused_iter_ref(S, idx, scal, spmv.expr, prec, layout)
+        for row in (host if S.dim() == 3 else [host]):
+            if row[IX["z_top"]] in written_rows(layout, row):
+                raise ValueError("z_top row is among the rows this phase "
+                                 "writes")
+        ref_fn = fused_iter_ref if S.dim() == 2 else fused_iter_ref_slab
+        return ref_fn(S, idx, scal, spmv.expr, prec, layout)
 
     def launch(S, idx, scal):
         dev = S.device
+        slab = S.dim() == 3
+        s = S.shape[0] if slab else 1
+        if slab and spmv.prepare is not None:
+            raise ValueError("the slab form takes single-device plug-ins "
+                             "only: batched solves over ranks are not ported "
+                             "(ROADMAP.md, queue 1 item 5b)")
+        if not 1 <= s <= MAX_SLAB:
+            raise ValueError(f"a slab of {s} columns (want 1 to {MAX_SLAB})")
         if l > LMAX:
             need, have = runtime_smem_bytes(l), smem_optin(name, dev)
             if need > have:
@@ -411,9 +438,13 @@ def build_fused_iteration(
                     f"deepest, l = {deepest_runtime_l(have)}: the "
                     f"runtime-depth kernel needs {need} bytes of shared "
                     f"memory a block, the card allows {have}")
-        _check(S, "S", torch.float64, (nv, n), dev, rows_strided=True)
-        _check(idx, "idx", torch.int32, (IX["size"],), dev)
-        _check(scal, "scal", torch.float64, (IS["size"],), dev)
+        lead = (s,) if slab else ()
+        if slab:
+            _check(S, "S", torch.float64, (s, nv, n), dev)
+        else:
+            _check(S, "S", torch.float64, (nv, n), dev, rows_strided=True)
+        _check(idx, "idx", torch.int32, lead + (IX["size"],), dev)
+        _check(scal, "scal", torch.float64, lead + (IS["size"],), dev)
         inv = None
         if inv_diag is not None:
             inv = inv_diag
@@ -427,6 +458,7 @@ def build_fused_iteration(
             _check(cols, "cols", torch.int32, (n, w), dev)
             _check(vals, "vals", torch.float64, (n, w), dev)
         nb = (n + BLOCK - 1) // BLOCK
+        zs = n
         if spmv.prepare is not None:
             # The halo plug-ins read the operand ``prepare`` builds from the
             # ring-top row (selected on the device: no host sync).
@@ -434,27 +466,29 @@ def build_fused_iteration(
             zbuf = spmv.prepare(S.index_select(0, idx[pos:pos + 1])[0])
             _check(zbuf, "prepared operand", torch.float64,
                    (spmv.ext_len,), dev)
+            zs = spmv.ext_len
         elif spmv.kind == "diagonal":
             zbuf = None
         else:
-            zbuf = torch.empty(n, dtype=S.dtype, device=dev)
-        part = torch.empty((nd, nb), dtype=S.dtype, device=dev)
-        partials = torch.empty((nd,), dtype=S.dtype, device=dev)
+            zbuf = torch.empty(lead + (n,), dtype=S.dtype, device=dev)
+        part = torch.empty(lead + (nd, nb), dtype=S.dtype, device=dev)
+        partials = torch.empty(lead + (nd,), dtype=S.dtype, device=dev)
         fn = getattr(_build.load(name, {name: _ARGTYPES}), name)
         nx, ny, nz = spmv.dims
+        ld = S.stride(-2)
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream(dev).cuda_stream
             rc = fn(l, int(layout.recurrence == "stable"),
-                    int(inv is not None), S.data_ptr(), n, S.stride(0),
-                    layout.RB,
+                    int(inv is not None), S.data_ptr(), n, ld, s,
+                    S.stride(0) if slab else nv * ld, layout.RB,
                     idx.data_ptr(), scal.data_ptr(),
-                    None if zbuf is None else zbuf.data_ptr(),
+                    None if zbuf is None else zbuf.data_ptr(), zs,
                     None if inv is None else inv.data_ptr(),
                     part.data_ptr(), nb, partials.data_ptr(), nx, ny, nz,
                     spmv.coef, None if d is None else d.data_ptr(),
                     None if cols is None else cols.data_ptr(),
                     None if vals is None else vals.data_ptr(), w, stream)
-        _build.LAUNCHES[count_key] += 1
+        _build.LAUNCHES[launch_key(spmv.kind, l, slab)] += 1
         _build.check(rc, name)
         return S, partials
 

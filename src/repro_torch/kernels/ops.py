@@ -72,7 +72,8 @@ def fused_iteration_factory(op, prec=None):
 
 def stencil2d5_apply(g: torch.Tensor) -> torch.Tensor:
     """The CUDA stencil kernel needs no padding or blocking on the host:
-    it reads its neighbours and the Dirichlet zeros itself."""
+    it reads its neighbours and the Dirichlet zeros itself.  ``g`` is one
+    (nx, ny) grid or an (s, nx, ny) slab (one launch for all s)."""
     return _ss.stencil2d5(g.contiguous())
 
 
@@ -83,8 +84,9 @@ def stencil3d7_apply(g: torch.Tensor, eps_z: float = 1.0) -> torch.Tensor:
 def ell_spmv_apply(x: torch.Tensor, cols: torch.Tensor,
                    vals: torch.Tensor) -> torch.Tensor:
     """Padded-row ELL SpMV (DESIGN.md §12).  ``x`` may be longer than the
-    row count.  The CUDA kernel bounds-checks its rows, so no padding to a
-    block multiple is needed."""
+    row count, and may be an (s, n) slab (one launch for all s rows).  The
+    CUDA kernel bounds-checks its rows, so no padding to a block multiple
+    is needed."""
     return _el.ell_spmv(x, cols.contiguous(), vals.contiguous())
 
 

@@ -18,18 +18,24 @@ NEG_FILL = -1e30      # the Pallas decode kernel's mask value
 
 
 def stencil2d5_ref(g: torch.Tensor) -> torch.Tensor:
+    """5-point Laplacian of an (nx, ny) grid, or of each grid of an
+    (s, nx, ny) slab (the slab form applies the same expression to every
+    leading index, so each grid's result is bitwise the single-grid one)."""
     p = F.pad(g, (1, 1, 1, 1))
-    return 4.0 * g - p[:-2, 1:-1] - p[2:, 1:-1] - p[1:-1, :-2] - p[1:-1, 2:]
+    return (4.0 * g - p[..., :-2, 1:-1] - p[..., 2:, 1:-1]
+            - p[..., 1:-1, :-2] - p[..., 1:-1, 2:])
 
 
 def stencil3d7_ref(g: torch.Tensor, eps_z: float = 1.0) -> torch.Tensor:
+    """Anisotropic 7-point stencil of an (nx, ny, nz) grid or an
+    (s, nx, ny, nz) slab of them."""
     p = F.pad(g, (1, 1, 1, 1, 1, 1))
     ez = torch.full((), eps_z, dtype=g.dtype, device=g.device)
     return (
         (4.0 + 2.0 * ez) * g
-        - p[:-2, 1:-1, 1:-1] - p[2:, 1:-1, 1:-1]
-        - p[1:-1, :-2, 1:-1] - p[1:-1, 2:, 1:-1]
-        - ez * p[1:-1, 1:-1, :-2] - ez * p[1:-1, 1:-1, 2:]
+        - p[..., :-2, 1:-1, 1:-1] - p[..., 2:, 1:-1, 1:-1]
+        - p[..., 1:-1, :-2, 1:-1] - p[..., 1:-1, 2:, 1:-1]
+        - ez * p[..., 1:-1, 1:-1, :-2] - ez * p[..., 1:-1, 1:-1, 2:]
     )
 
 
@@ -63,7 +69,8 @@ def stencil3d7_halo_ref(zext: torch.Tensor, nxl: int, ny: int, nz: int,
 
 
 def stencil3d27_ref(g: torch.Tensor, centre: float) -> torch.Tensor:
-    nx, ny, nz = g.shape
+    """27-point stencil of an (nx, ny, nz) grid or an (s, nx, ny, nz) slab."""
+    nx, ny, nz = g.shape[-3:]
     p = F.pad(g, (1, 1, 1, 1, 1, 1))
     out = centre * g
     for di in (-1, 0, 1):
@@ -73,8 +80,8 @@ def stencil3d27_ref(g: torch.Tensor, centre: float) -> torch.Tensor:
                 if order == 0:
                     continue
                 w = {1: 1.0, 2: 0.5, 3: 0.25}[order]
-                out = out - w * p[1 + di:1 + di + nx, 1 + dj:1 + dj + ny,
-                                  1 + dk:1 + dk + nz]
+                out = out - w * p[..., 1 + di:1 + di + nx,
+                                  1 + dj:1 + dj + ny, 1 + dk:1 + dk + nz]
     return out
 
 
@@ -93,10 +100,11 @@ def ell_spmv_ref(x: torch.Tensor, cols: torch.Tensor,
                  vals: torch.Tensor) -> torch.Tensor:
     """Padded-row ELL SpMV: y[r] = sum_s vals[r,s] * x[cols[r,s]], in
     ``vals``' dtype.  Padded slots carry vals 0.  ``x`` may be longer than
-    the row count.  The JAX oracle sums the slots with ``.sum(axis=1)``;
-    this version takes the :func:`ell_rowsum` chain of ``SparseOp.apply``
-    (the two differ by rounding only)."""
-    return ell_rowsum(vals, x[cols].to(vals.dtype))
+    the row count, and may be an (s, n) slab of vectors (one a row; the
+    result is then (s, R)).  The JAX oracle sums the slots with
+    ``.sum(axis=1)``; this version takes the :func:`ell_rowsum` chain of
+    ``SparseOp.apply`` (the two differ by rounding only)."""
+    return ell_rowsum(vals, x[..., cols].to(vals.dtype))
 
 
 def _sel(flag, a, b):
@@ -196,6 +204,102 @@ def fused_iter_ref(S, idx, scal, apply_a, prec, layout):
 
     out, mat, u_new = fused_iter_unfused(S, idx, scal, apply_a, prec, layout)
     return out, dot_block_rows(mat, u_new)
+
+
+def fused_iter_unfused_slab(S, idx, scal, apply_a, prec, layout):
+    """The unfused vector phase of a SLAB of s columns, in place: ``S`` is
+    (s, NV, N), ``idx`` the (s, IX) index table on S's device (one
+    ``idx_layout`` row a column, each column at its own cycle index) and
+    ``scal`` (s, IS).  ``apply_a`` and ``prec`` take an (s, N) slab.
+
+    Per column it is :func:`fused_iter_unfused` term by term: every row is
+    gathered per column (one advanced-indexing gather for all s columns),
+    every flag is a per-column select, and every operand row is read before
+    the first write, so writing into ``S`` in place equals the functional
+    version's fresh slab.  Returns ``(S, mat (s, K, N), u_new (s, N))``."""
+    from repro_torch.kernels.fused_iter import idx_layout, scal_layout
+
+    l = layout.l
+    IX = idx_layout(l)
+    IS = scal_layout(l)
+    ar = torch.arange(S.shape[0], device=S.device)
+    rows = idx.to(torch.long)
+
+    def row(name, k=0):
+        return rows[:, IX[name] + k]
+
+    def flag(name, k=0):
+        return (idx[:, IX[name] + k] != 0)[:, None]
+
+    def get(name, k=0):
+        return S[ar, row(name, k)]
+
+    def sc(name, k=0):
+        return scal[:, IS[name] + k, None]
+
+    late = flag("f_late")
+    z_top, u_i, u_im1 = get("z_top"), get("u_i"), get("u_im1")
+
+    az = apply_a(z_top)
+    u_new0 = az - sc("sig_i") * u_i
+    u_new = torch.where(
+        late,
+        (u_new0 - sc("gam_new") * u_i - sc("d2") * u_im1) / sc("dlt_safe"),
+        u_new0)
+    if layout.recurrence == "stable":
+        z_new = prec(u_new)
+        z_fill = z_new
+    else:
+        z_new0 = prec(u_new0)
+        zl_im1 = get("zl_im1")
+        z_new = torch.where(
+            late,
+            (z_new0 - sc("gam_new") * z_top - sc("d2") * zl_im1)
+            / sc("dlt_safe"),
+            z_new0)
+        z_fill = z_new0
+
+    fills = [torch.where(flag("f_fill", k), z_fill, get("fill", k))
+             for k in range(l)]
+    recs = []
+    for k in range(l):
+        rec = (get("rec_a", k) + sc("c1", k) * get("rec_b", k)
+               - sc("d2") * get("rec_c", k)) / sc("dlt_safe")
+        recs.append(torch.where(late, rec, get("rec_w", k)))
+    mat = torch.stack([get("mat_v", t) for t in range(l)] + [recs[0]]
+                      + [get("mat_z", t) for t in range(l - 1)] + [z_new],
+                      dim=1)
+    x_old = S[:, layout.x_row]           # views: no write below hits them
+    p_old = S[:, layout.p_row]           # before they are read
+    p_first = S[:, 0] / sc("eta0_safe")
+    p_new = (get("p_im") - sc("d_prev") * p_old) / sc("eta_new_safe")
+    x_new = x_old + sc("zet_prev") * p_old
+
+    # Every operand is read; the writes follow in the functional order.
+    for k in range(l):
+        S[ar, row("fill", k)] = fills[k]
+    for k in range(l):
+        S[ar, row("rec_w", k)] = recs[k]
+    S[ar, row("z_w")] = z_new
+    S[ar, row("u_w")] = u_new
+    S[:, layout.x_row] = torch.where(flag("f_upd"), x_new, x_old)
+    S[:, layout.p_row] = torch.where(
+        flag("f_first"), p_first, torch.where(flag("f_upd"), p_new, p_old))
+    return S, mat, u_new
+
+
+def fused_iter_ref_slab(S, idx, scal, apply_a, prec, layout):
+    """The plain version of the superkernel's slab form: the single-column
+    :func:`fused_iter_ref` applied to each column ``c`` with its own
+    ``idx[c]`` and ``scal[c]``; ``apply_a``/``prec`` act on one column.
+    Returns a fresh (s, NV, N) slab and the (s, 2l+1) partials."""
+    outs, parts = [], []
+    for c in range(S.shape[0]):
+        out, part = fused_iter_ref(S[c], idx[c], scal[c], apply_a, prec,
+                                   layout)
+        outs.append(out)
+        parts.append(part)
+    return torch.stack(outs), torch.stack(parts)
 
 
 def fused_dots_ref(mat: torch.Tensor, vec: torch.Tensor) -> torch.Tensor:

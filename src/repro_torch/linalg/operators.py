@@ -1,7 +1,12 @@
 """SPD linear operators used by the CG solvers (counterpart of
 ``repro/linalg/operators.py``).
 
-All operators act on flat vectors of length ``n``.  Each ``apply`` keeps
+All operators act on flat vectors of length ``n``, or on an (s, n) slab
+of them, one vector a row: the port's batched layout, the transpose of
+the JAX package's (n, s) ``B`` (the JAX operators see one column at a
+time under ``vmap``).  A slab row's result is bitwise that of the same
+vector applied alone, on the plain path and through the kernels' slab
+forms alike (``DenseSPD``, a test helper, excepted).  Each ``apply`` keeps
 the exact term order of the JAX package's expression
 (``repro/kernels/ops.py:53-94``), which the superkernel mirrors.  The
 stencil operators optionally route their apply through the standalone
@@ -109,12 +114,12 @@ class Stencil2D5(LinearOperator):
         return self.nx * self.ny
 
     def apply(self, x: torch.Tensor) -> torch.Tensor:
-        g = x.reshape(self.nx, self.ny)
+        g = x.reshape(x.shape[:-1] + (self.nx, self.ny))
         if self.use_kernel:
             from repro_torch.kernels import ops as kops
 
-            return kops.stencil2d5_apply(g).reshape(-1)
-        return ref.stencil2d5_ref(g).reshape(-1)
+            return kops.stencil2d5_apply(g).reshape(x.shape)
+        return ref.stencil2d5_ref(g).reshape(x.shape)
 
     def diag(self) -> torch.Tensor:
         return torch.full((self.n,), 4.0, dtype=torch.float64,
@@ -148,12 +153,12 @@ class Stencil3D7(LinearOperator):
         return self.nx * self.ny * self.nz
 
     def apply(self, x: torch.Tensor) -> torch.Tensor:
-        g = x.reshape(self.nx, self.ny, self.nz)
+        g = x.reshape(x.shape[:-1] + (self.nx, self.ny, self.nz))
         if self.use_kernel:
             from repro_torch.kernels import ops as kops
 
-            return kops.stencil3d7_apply(g, self.eps_z).reshape(-1)
-        return ref.stencil3d7_ref(g, self.eps_z).reshape(-1)
+            return kops.stencil3d7_apply(g, self.eps_z).reshape(x.shape)
+        return ref.stencil3d7_ref(g, self.eps_z).reshape(x.shape)
 
     def diag(self) -> torch.Tensor:
         return torch.full((self.n,), 4.0 + 2.0 * self.eps_z,
@@ -193,8 +198,8 @@ class Stencil3D27(LinearOperator):
         return self.nx * self.ny * self.nz
 
     def apply(self, x: torch.Tensor) -> torch.Tensor:
-        g = x.reshape(self.nx, self.ny, self.nz)
-        return ref.stencil3d27_ref(g, self.centre).reshape(-1)
+        g = x.reshape(x.shape[:-1] + (self.nx, self.ny, self.nz))
+        return ref.stencil3d27_ref(g, self.centre).reshape(x.shape)
 
     def diag(self) -> torch.Tensor:
         return torch.full((self.n,), self.centre, dtype=torch.float64,
@@ -223,7 +228,7 @@ class DenseSPD(LinearOperator):
         return int(self.a.shape[0])
 
     def apply(self, x: torch.Tensor) -> torch.Tensor:
-        return self.a @ x
+        return self.a @ x if x.dim() == 1 else x @ self.a.T
 
     def diag(self) -> torch.Tensor:
         return torch.diagonal(self.a)

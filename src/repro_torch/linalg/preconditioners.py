@@ -99,10 +99,12 @@ class BlockJacobi(Preconditioner):
         return BlockJacobi(inv_blocks=inv)
 
     def apply(self, x: torch.Tensor) -> torch.Tensor:
+        """M^{-1} x for a vector or an (s, n) slab (one vector a row; the
+        slab's block products may round differently from one vector's)."""
         nb, b, _ = self.inv_blocks.shape
-        y = torch.einsum("nij,nj->ni", self.inv_blocks.to(x.dtype),
-                         x.reshape(nb, b))
-        return y.reshape(-1)
+        y = torch.einsum("nij,...nj->...ni", self.inv_blocks.to(x.dtype),
+                         x.reshape(x.shape[:-1] + (nb, b)))
+        return y.reshape(x.shape)
 
 
 def spd_check_blockjacobi(op: LinearOperator, block_size: int) -> bool:

@@ -98,11 +98,12 @@ class SparseOp(LinearOperator):
     def apply(self, x: torch.Tensor) -> torch.Tensor:
         if self.use_kernel:
             return self.apply_kernel(x)
-        return ell_rowsum(self.vals.to(x.dtype), x[self.cols])
+        return ell_rowsum(self.vals.to(x.dtype), x[..., self.cols])
 
     def apply_kernel(self, x: torch.Tensor) -> torch.Tensor:
         """Route the product through the ELL kernel
-        (``kernels.ops.ell_spmv_apply``; its plain version on the CPU)."""
+        (``kernels.ops.ell_spmv_apply``; its plain version on the CPU).
+        An (s, n) slab goes through the kernel's slab form in one launch."""
         from repro_torch.kernels import ops as kops
 
         return kops.ell_spmv_apply(x, self.cols, self.vals)

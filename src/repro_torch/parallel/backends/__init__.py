@@ -5,7 +5,8 @@ backends in one)."""
 
 from __future__ import annotations
 
-from repro_torch.parallel.backends.base import METHODS, ReductionBackend
+from repro_torch.parallel.backends.base import (BATCHED_OVER_RANKS, METHODS,
+                                                ReductionBackend)
 from repro_torch.parallel.backends.local import LocalBackend
 from repro_torch.parallel.backends.multiprocess import MultiprocessBackend
 
@@ -35,5 +36,5 @@ def get_backend(name: str, **kwargs) -> ReductionBackend:
     return cls(**kwargs)
 
 
-__all__ = ["METHODS", "ReductionBackend", "LocalBackend",
+__all__ = ["BATCHED_OVER_RANKS", "METHODS", "ReductionBackend", "LocalBackend",
            "MultiprocessBackend", "available_backends", "get_backend"]

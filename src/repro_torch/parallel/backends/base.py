@@ -11,7 +11,12 @@ from typing import ClassVar
 from repro_torch.core import METHODS
 from repro_torch.core.types import SolveResult
 
-__all__ = ["METHODS", "ReductionBackend"]
+__all__ = ["METHODS", "ReductionBackend", "BATCHED_OVER_RANKS"]
+
+# Where the batched solves and the serve layer over ranks stand in the
+# roadmap (every refusal of them names it).
+BATCHED_OVER_RANKS = ("batched solves and serving over ranks are not "
+                      "ported yet (ROADMAP.md, queue 1 item 5b)")
 
 
 class ReductionBackend(abc.ABC):
@@ -28,6 +33,30 @@ class ReductionBackend(abc.ABC):
               **solver_kwargs) -> SolveResult:
         """Solve A x = b with the chosen CG variant on this substrate;
         ``solver_kwargs`` go to the solver (l, tol, maxit, sigmas, ...)."""
+
+    def solve_batched(self, op, B, method: str = "plcg", prec=None,
+                      **solver_kwargs) -> SolveResult:
+        """Solve A X = B for every row of B (s, n) in lock step: one
+        (s, K) dot-block start an iteration whatever s is; the result's
+        tensors carry a leading s axis, and row j matches
+        ``solve(op, B[j], ...)`` (tests/test_torch_batched.py)."""
+        raise NotImplementedError(
+            f"{type(self).__name__} does not support solve_batched")
+
+    def make_batched_solver(self, op, method: str = "plcg", prec=None,
+                            **solver_kwargs):
+        """A reusable batched solver ``B (s, n) -> SolveResult``."""
+        raise NotImplementedError(
+            f"{type(self).__name__} does not support make_batched_solver")
+
+    def make_slab_program(self, op, s: int, method: str = "plcg", prec=None,
+                          chunk_iters: int = 16, dtype=None,
+                          **solver_kwargs):
+        """The chunked slab life cycle for the serving layer
+        (``repro_torch.serve``): init / chunk / inject / status / extract
+        over a fixed (s, n) slab (``repro_torch.core.batched``)."""
+        raise NotImplementedError(
+            f"{type(self).__name__} does not support make_slab_program")
 
     def describe(self) -> str:
         return f"{self.name} reduction backend"

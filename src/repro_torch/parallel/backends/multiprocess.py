@@ -25,8 +25,9 @@ The dot block is an asynchronous ``all_reduce`` (monolithic), or the
 staged ring ladder of point-to-point hops (``reduction="staged"``), which
 is bitwise equal to its one-process reference
 (``parallel.distributed.rank_oracle_ops``; unfused, to
-``LocalBackend(reduction="staged", virtual_shards=P)``).  Batched and
-checkpointed solves over ranks are not ported (they raise).
+``LocalBackend(reduction="staged", virtual_shards=P)``).  Batched solves
+and slab programs over ranks (queue 1 item 5b) and checkpointed solves
+(item 6) are not ported (they raise).
 """
 
 from __future__ import annotations
@@ -37,7 +38,8 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.device import as_rhs, resolve_device
-from repro_torch.parallel.backends.base import METHODS, ReductionBackend
+from repro_torch.parallel.backends.base import (BATCHED_OVER_RANKS, METHODS,
+                                                ReductionBackend)
 
 ENV_VARS = ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT")
 
@@ -128,9 +130,16 @@ class MultiprocessBackend(ReductionBackend):
 
     def solve_batched(self, op, B, method: str = "plcg", prec=None,
                       **solver_kwargs):
-        raise NotImplementedError(
-            "batched solves over ranks are not ported yet (ROADMAP.md, "
-            "queue 1 item 5)")
+        raise NotImplementedError(BATCHED_OVER_RANKS)
+
+    def make_batched_solver(self, op, method: str = "plcg", prec=None,
+                            **solver_kwargs):
+        raise NotImplementedError(BATCHED_OVER_RANKS)
+
+    def make_slab_program(self, op, s: int, method: str = "plcg", prec=None,
+                          chunk_iters: int = 16, dtype=None,
+                          **solver_kwargs):
+        raise NotImplementedError(BATCHED_OVER_RANKS)
 
     # ------------------------------------------------- wire introspection --
     def hop_wire(self) -> str:
