@@ -96,11 +96,14 @@ Phases, each printed as one JSON line; every phase raises on failure:
    of 8 right-hand sides at phase 3's settings, column 0 phase 3's b
    (every column converged, column 0's updates phase 3's; ms per slab
    and per column iteration, host syncs, scalar-phase groups, a profiler
-   split) and at icesheet3d's; the slab fused against unfused for 200
-   updates; the slab forms of the superkernel (stencil and ELL),
-   ``stencil2d5``, ``stencil3d7`` and ``ell_spmv`` at s in {1, 8},
-   bitwise against their plain versions, timed beside s single-column
-   launches, their bounds and a library call; ``SolverService`` serving
+   split) and at icesheet3d's (column 0 bitwise equal to phase 7's
+   solve, a profiler split, and a slab of 32 beside it); the slab fused
+   against unfused for 200 updates; the slab forms of the superkernel
+   (stencil and ELL), ``stencil2d5``, ``stencil3d7`` and ``ell_spmv`` at
+   s in {1, 8} (the two ELL kernels also at 32), bitwise against their
+   plain versions and their single-column launches, timed beside s
+   single-column launches, their bounds and a library call;
+   ``SolverService`` serving
    16 requests at laplace2d 2048^2 through ``stencil2d5``'s slab form,
    every solve held against the operator, and batched CG through the
    ``stencil3d7`` and ``ell_spmv`` slab forms bitwise against the plain
@@ -1425,6 +1428,7 @@ def distributed_phase(lap_op, lap_prec, lap_b, solve_kw, main, main_digest,
 
 
 SLAB_S = 8                      # batched_serve: the slab width
+SLAB_WIDE = 32                  # batched_serve: the wide ice-sheet slab
 SERVE_REQUESTS = 16             # batched_serve: requests served at 2048^2
 BATCH_SEED = 22                 # batched_serve: columns 1.. and the traces
 SLAB_HISTORY_RTOL = 1e-10       # batched_serve: slab fused vs unfused
@@ -1433,11 +1437,14 @@ SLAB_HISTORY_RTOL = 1e-10       # batched_serve: slab fused vs unfused
 
 
 def slab_kernel_checks(dev, randn, phase_scal, lap, ice, op, prec, iop,
-                       iprec, widths=(1, SLAB_S)) -> tuple[dict, dict]:
+                       iprec, widths=(1, SLAB_S),
+                       ell_widths=(1, SLAB_S, SLAB_WIDE)) -> tuple[dict, dict]:
     """The slab forms of the superkernel (stencil and ELL plug-ins),
     ``stencil2d5``/``stencil3d7`` and ``ell_spmv`` at each slab width of
-    ``widths``, on the main path's shapes: bitwise against their plain
-    versions (the superkernel's partials within PARTIAL_BOUND), then their
+    ``widths`` (the two ELL kernels at ``ell_widths``), on the main path's
+    shapes: bitwise against their plain versions (the superkernel's
+    partials within PARTIAL_BOUND of the plain sums, and each column's
+    rows and partials bitwise its single-column launch's), then their
     device times, the single-column kernel's time times s, the bound and a
     library yardstick where one exists.  Returns (errors, timings), keyed
     ``<kernel>_s<width>``."""
@@ -1461,10 +1468,39 @@ def slab_kernel_checks(dev, randn, phase_scal, lap, ice, op, prec, iop,
         t["s_times_single_column_ms"] = s * t["single_column_ms"]
         timings[f"{name}_s{s}"] = t
 
-    for s in widths:
+    def ell_spmv_slab_row(s):
+        """``ell_spmv`` over a slab of s vectors against its plain version
+        and, row by row, the single-vector launch; cuSPARSE's CSR by an
+        (n, s) block as the yardstick."""
+        X = randn(s, iop.n)
+        got = ell_spmv.ell_spmv(X, iop.cols, iop.vals)
+        want = ell_spmv.ell_spmv_plain(X, iop.cols, iop.vals)
+        keep = iop.vals != 0
+        crow = torch.zeros(iop.n + 1, dtype=torch.int64, device=dev)
+        crow[1:] = torch.cumsum(keep.sum(dim=1), 0)
+        csr = torch.sparse_csr_tensor(crow, iop.cols[keep].long(),
+                                      iop.vals[keep], size=(iop.n, iop.n))
+        Xt = X.T.contiguous()
+        rows_same = all(bool(torch.equal(got[c], ell_spmv.ell_spmv(
+            X[c], iop.cols, iop.vals))) for c in range(s))
+        row("ell_spmv_slab", s, float((got - want).abs().max()),
+            bool(torch.equal(got, want)) and rows_same,
+            lambda: ell_spmv.ell_spmv(X, iop.cols, iop.vals),
+            lambda: ell_spmv.ell_spmv(X[0], iop.cols, iop.vals),
+            lambda: ell_spmv.ell_spmv_plain(X, iop.cols, iop.vals),
+            iop.cols.numel() * 4 + iop.vals.numel() * 8 + 2 * X.numel() * 8,
+            lambda: torch.sparse.mm(csr, Xt))
+        timings[f"ell_spmv_slab_s{s}"]["library_max_abs_diff"] = float(
+            (torch.sparse.mm(csr, Xt).T - got).abs().max())
+        del X, Xt, got, want, csr
+        torch.cuda.empty_cache()
+
+    for s in sorted(set(widths) | set(ell_widths)):
         # ---- the superkernel's slab form, stencil and ELL plug-ins
         for name, sop, sprec in (("fused_iter_slab", op, prec),
                                  ("fused_iter_ell_slab", iop, iprec)):
+            if s not in (ell_widths if sop is iop else widths):
+                continue
             layout = fi.SlabLayout(l=2, RB=3)
             fiter = kops.fused_iteration_factory(sop, sprec)(layout)
             # each column at its own cycle index, fills and steady state
@@ -1477,14 +1513,18 @@ def slab_kernel_checks(dev, randn, phase_scal, lap, ice, op, prec, iop,
             S_k, d_k = fiter(S.clone(), idx, scal)
             torch.cuda.synchronize()
             same = bool(torch.equal(S_k, S_p))
-            part = 0.0
+            part, single_same = 0.0, True
             for c in range(s):
                 _, mat, u = ref.fused_iter_unfused(
                     S[c], idx[c], scal[c], sop.apply, sprec.apply, layout)
                 scale = (mat.abs() * u.abs()[None, :]).sum(dim=1)
                 part = max(part, float(((d_k[c] - d_p[c]).abs()
                                         / scale).max()))
-            same = same and part <= PARTIAL_BOUND
+                S_1, d_1 = fiter(S[c].clone(), idx[c], scal[c])
+                single_same = single_same and bool(
+                    torch.equal(S_1, S_k[c]) and torch.equal(d_1, d_k[c]))
+                del S_1, mat, u
+            same = same and part <= PARTIAL_BOUND and single_same
             del S_k, S_p
             nbytes = sum(fi.min_bytes(layout, h, sop.n, has_prec=False,
                                       has_diag=False) for h in hosts) \
@@ -1493,8 +1533,14 @@ def slab_kernel_checks(dev, randn, phase_scal, lap, ice, op, prec, iop,
                 lambda: fiter(S[0], idx[0], scal[0]),
                 lambda: fiter.plain(S, idx, scal), nbytes)
             timings[f"{name}_s{s}"]["partials_max_diff_over_abs_sum"] = part
+            timings[f"{name}_s{s}"]["columns_bitwise_vs_single_launches"] = \
+                single_same
             del S
+        if s in ell_widths:
+            ell_spmv_slab_row(s)
         # ---- the stencils over a slab of s grids
+        if s not in widths:
+            continue
         g2 = randn(s, lap.nx, lap.ny)
         w2 = torch.tensor([[0., -1., 0.], [-1., 4., -1.], [0., -1., 0.]],
                           dtype=torch.float64, device=dev)[None, None]
@@ -1522,28 +1568,6 @@ def slab_kernel_checks(dev, randn, phase_scal, lap, ice, op, prec, iop,
             lambda: torch.nn.functional.conv3d(g3[:, None], w3[None, None],
                                                padding=1))
         del g3, got, want
-        # ---- ell_spmv over a slab of s vectors; cuSPARSE's CSR by an
-        # (n, s) block as the yardstick
-        X = randn(s, iop.n)
-        got = ell_spmv.ell_spmv(X, iop.cols, iop.vals)
-        want = ell_spmv.ell_spmv_plain(X, iop.cols, iop.vals)
-        keep = iop.vals != 0
-        crow = torch.zeros(iop.n + 1, dtype=torch.int64, device=dev)
-        crow[1:] = torch.cumsum(keep.sum(dim=1), 0)
-        csr = torch.sparse_csr_tensor(crow, iop.cols[keep].long(),
-                                      iop.vals[keep], size=(iop.n, iop.n))
-        Xt = X.T.contiguous()
-        row("ell_spmv_slab", s, float((got - want).abs().max()),
-            bool(torch.equal(got, want)),
-            lambda: ell_spmv.ell_spmv(X, iop.cols, iop.vals),
-            lambda: ell_spmv.ell_spmv(X[0], iop.cols, iop.vals),
-            lambda: ell_spmv.ell_spmv_plain(X, iop.cols, iop.vals),
-            iop.cols.numel() * 4 + iop.vals.numel() * 8 + 2 * X.numel() * 8,
-            lambda: torch.sparse.mm(csr, Xt))
-        timings[f"ell_spmv_slab_s{s}"]["library_max_abs_diff"] = float(
-            (torch.sparse.mm(csr, Xt).T - got).abs().max())
-        del X, Xt, got, want, csr
-        torch.cuda.empty_cache()
     if failed:
         raise AssertionError(f"slab kernels differ from their plain "
                              f"versions: {failed}")
@@ -1552,7 +1576,8 @@ def slab_kernel_checks(dev, randn, phase_scal, lap, ice, op, prec, iop,
 
 def batched_serve_phase(dev, gpu, randn, phase_scal, lap, ice, op, prec, b,
                         solve_kw, main, main_digest, iop, iprec, ib,
-                        ice_kw, ice_main) -> tuple[dict, dict, dict]:
+                        ice_kw, ice_main,
+                        ice_digest) -> tuple[dict, dict, dict]:
     """Phase 16, batched multi-RHS solves and the serve layer on the card:
 
     1. ``LocalBackend.solve_batched`` at laplace2d 2048^2 with phase 3's
@@ -1562,10 +1587,12 @@ def batched_serve_phase(dev, gpu, randn, phase_scal, lap, ice, op, prec, b,
        it bit for bit), with the slab's ms per slab iteration and per
        column iteration, host syncs, scalar-phase groups and a profiler
        split per slab iteration; the same for icesheet3d (the ELL
-       plug-in);
+       plug-in; column 0 bitwise equal to phase 7's solve, x and history)
+       and a slab of ``SLAB_WIDE`` ice-sheet right-hand sides;
     2. the same slab fused and unfused for 200 updates (iterations equal,
        histories within SLAB_HISTORY_RTOL; bitwise reported);
-    3. the slab kernels at s in {1, SLAB_S} (``slab_kernel_checks``);
+    3. the slab kernels at s in {1, SLAB_S}, the ELL ones also at
+       ``SLAB_WIDE`` (``slab_kernel_checks``);
     4. ``SolverService`` on ``Stencil2D5(use_kernel=True)`` 2048^2 with
        Jacobi, s = SLAB_S, chunk_iters 64, under a ``VirtualClock``: a
        seeded Poisson trace of ``SERVE_REQUESTS`` requests at tol 1e-6,
@@ -1594,11 +1621,10 @@ def batched_serve_phase(dev, gpu, randn, phase_scal, lap, ice, op, prec, b,
     launches, failed = {}, []
     rng = np.random.default_rng(BATCH_SEED)
 
-    def slab_of(first, n):
-        B = torch.empty((SLAB_S, n), dtype=torch.float64, device=dev)
+    def slab_of(first, n, s=SLAB_S):
+        B = torch.empty((s, n), dtype=torch.float64, device=dev)
         B[0] = first
-        B[1:] = torch.tensor(rng.standard_normal((SLAB_S - 1, n)),
-                             device=dev)
+        B[1:] = torch.tensor(rng.standard_normal((s - 1, n)), device=dev)
         return B
 
     def true_rel(aop, B, X):
@@ -1622,12 +1648,14 @@ def batched_serve_phase(dev, gpu, randn, phase_scal, lap, ice, op, prec, b,
         slab_iters = lz.get(key, 0)
         rel = true_rel(aop, B, r.x)
         updates = int(r.iters.sum())
-        rec = {"iters": r.iters.tolist(), "restarts": r.restarts.tolist(),
+        s = B.shape[0]
+        rec = {"s": s, "iters": r.iters.tolist(),
+               "restarts": r.restarts.tolist(),
                "converged": r.converged.tolist(), "true_rel_residual": rel,
                "slab_iterations": slab_iters, "wall_s": wall,
                "ms_per_slab_iteration": 1e3 * wall / max(slab_iters, 1),
                "ms_per_column_iteration": 1e3 * wall
-               / max(slab_iters * SLAB_S, 1),
+               / max(slab_iters * s, 1),
                "ms_per_update": 1e3 * wall / max(updates, 1),
                "sequential_ms_per_vector_phase": seq["ms_per_iter"],
                "sequential_ms_per_update": seq["ms_per_update"],
@@ -1641,7 +1669,7 @@ def batched_serve_phase(dev, gpu, randn, phase_scal, lap, ice, op, prec, b,
                "max_scalar_phase_groups": max(pipelined_cg.SCALAR_GROUPS,
                                               default=0),
                "launches": lz}
-        launches[key] = slab_iters
+        launches[key] = launches.get(key, 0) + slab_iters
         if not (all(rec["converged"]) and max(rel) < 10 * TOL) \
                 or slab_iters == 0 or lz.get(key.replace("_slab", ""), 0):
             failed.append(name)
@@ -1671,8 +1699,27 @@ def batched_serve_phase(dev, gpu, randn, phase_scal, lap, ice, op, prec, b,
     IB = slab_of(ib, iop.n)
     r, rec = batched("icesheet3d", iop, iprec, IB, ice_kw,
                      "fused_iter_ell_slab", ice_main)
+    rec["column0_iters_vs_icesheet_solve"] = [rec["iters"][0],
+                                              ice_main["iters"]]
+    rec["column0_bitwise_vs_icesheet_solve"] = (digest(r.x[0]), digest(
+        r.res_history[0])) == ice_digest
+    if not rec["column0_bitwise_vs_icesheet_solve"]:
+        failed.append("icesheet3d column 0 vs icesheet_solve")
     out["icesheet3d"] = rec
     del r
+    prof_ice = dict(ice_kw, maxit=100, tol=1e-30)
+    be.solve_batched(iop, IB, prec=iprec, **prof_ice)
+    _build.reset_launches()
+    split = device_split(lambda: be.solve_batched(iop, IB, prec=iprec,
+                                                  **prof_ice),
+                         ("fused_iter_kernel", "copy_row", "sum_partials"))
+    out["icesheet3d_split"] = per_iter(
+        split, _build.LAUNCHES["fused_iter_ell_slab"])
+    r, rec = batched(f"icesheet3d_s{SLAB_WIDE}", iop, iprec,
+                     slab_of(ib, iop.n, SLAB_WIDE), ice_kw,
+                     "fused_iter_ell_slab", ice_main)
+    out[f"icesheet3d_s{SLAB_WIDE}"] = rec
+    del r, IB
 
     # ---- 2. fused against unfused, 200 updates ------------------------
     short = dict(solve_kw, maxit=200, tol=1e-30)
@@ -1690,7 +1737,7 @@ def batched_serve_phase(dev, gpu, randn, phase_scal, lap, ice, op, prec, b,
     if r_f.iters.tolist() != r_u.iters.tolist() or \
             not hist_rel <= SLAB_HISTORY_RTOL:
         failed.append("fused vs unfused")
-    del r_f, r_u, B, IB
+    del r_f, r_u, B
     torch.cuda.empty_cache()
 
     # ---- 3. the slab kernels ------------------------------------------
@@ -2139,6 +2186,7 @@ def main() -> int:
           "host_syncs": ires.host_syncs,
           "host_syncs_per_iter": ires.host_syncs / max(n_iter, 1),
           "true_rel_residual": true_rel, "launches": ice_launches})
+    ice_digest = (digest(ires.x), digest(ires.res_history))
     ice_main = {"iters": int(ires.iters), "restarts": int(ires.restarts),
                 "ms_per_iter": 1e3 * wall / max(n_iter, 1),
                 "ms_per_update": 1e3 * wall / max(int(ires.iters), 1)}
@@ -2363,7 +2411,7 @@ def main() -> int:
     # ---- 16. batched multi-RHS solves and the serve layer ----------------
     slab_launches, slab_err, slab_timings = batched_serve_phase(
         dev, gpu, randn, phase_scal, lap, ice, op, prec, b, solve_kw, main,
-        main_digest, iop, iprec, ib, ice_kw, ice_main)
+        main_digest, iop, iprec, ib, ice_kw, ice_main, ice_digest)
     slab_kernels = (("fused_iter_slab", "fused_iter.cuh",
                      "src/repro/kernels/fused_iter.py:262"),
                     ("fused_iter_ell_slab", "fused_iter.cuh",

@@ -5,9 +5,15 @@ side by side in one machine's run.
 
 At ``laplace2d`` 2048^2 (fp64, Jacobi, a late iteration of the cycle) it
 times the compile-time kernel at l = 2 and the runtime-depth kernel at
-l = 9 (``--depths``): CUDA events and ``torch.profiler`` device time over
-20 calls, in turns (``chip_smoke.in_turns``), and checks both against the
-plain vector phase (rows bitwise) first.  With ``--solve`` it then runs
+l = 9 (``--depths``).  With ``--ell`` it adds the ELL kernels at the ice
+sheet (``icesheet3d.config()``, 500 000 rows, W = 11): the superkernel's
+ELL plug-in at l = 2 for one column and a slab of 8 (each column at its
+own cycle index), at l = 9 (the runtime-depth kernel), its halo plug-in
+on one shard of 4, and ``ell_spmv`` for one vector and a slab of 8.  Each
+is checked first (rows bitwise against the plain version; a slab's
+columns, partials included, bitwise against single-column launches),
+then timed by CUDA events and ``torch.profiler`` device time over 20
+calls, in turns (``chip_smoke.in_turns``).  With ``--solve`` it then runs
 ``chip_smoke.py``'s main solve (``laplace2d.config()``, p(2)-CG, Jacobi,
 fused, ``unroll=16``, tol 1e-6) and reports its updates, restarts, vector
 phases, wall seconds, ms per vector phase and host syncs per vector
@@ -17,7 +23,7 @@ not see.  ``--src`` names the ``src`` directory whose
 there.  Prints the card's name and power limit, then one JSON line.
 
     python3 scripts/superkernel_ab.py [--src DIR] [--tag T] [--depths 2,9]
-                                      [--solve]
+                                      [--ell] [--solve]
 """
 
 from __future__ import annotations
@@ -37,6 +43,8 @@ def main() -> int:
     ap.add_argument("--depths", default="2,9",
                     help="comma-separated l (a checkout from before the "
                          "runtime-depth kernel takes only l <= 8)")
+    ap.add_argument("--ell", action="store_true",
+                    help="also time the ELL kernels at the ice sheet")
     ap.add_argument("--solve", action="store_true",
                     help="also time chip_smoke.py's main solve")
     args = ap.parse_args()
@@ -74,6 +82,8 @@ def main() -> int:
         rows_bitwise[f"l{l}"] = bool(torch.equal(S_k, S_p))
         del S_p, S_k
         fns[f"l{l}"] = (lambda f=fiter, S=S, i=idx, s=scal: f(S, i, s))
+    if args.ell:
+        ell_cases(dev, gen, fns, rows_bitwise)
     times = in_turns(fns)
     solve = main_solve(dev) if args.solve else None
     print(gpu_line())
@@ -81,6 +91,86 @@ def main() -> int:
                       "rows_bitwise": rows_bitwise, "times": times,
                       "main_solve": solve}))
     return 0 if all(rows_bitwise.values()) else 1
+
+
+def ell_cases(dev, gen, fns: dict, rows_bitwise: dict) -> None:
+    """The ELL kernels at ``icesheet3d`` (see the module's docstring),
+    checked, into ``fns`` and ``rows_bitwise``."""
+    import torch
+
+    from chip_smoke import N_SHARDS
+    from repro_torch.configs import icesheet3d
+    from repro_torch.configs.problems import build_operator
+    from repro_torch.kernels import ell_spmv, fused_iter as fi, ops as kops
+    from repro_torch.kernels import ref
+    from repro_torch.linalg import JacobiPrec
+    from repro_torch.linalg.partition import halo_exchange, partition_spd
+    from repro_torch.parallel.distributed import fused_spmv_local
+
+    op = build_operator(icesheet3d.config())
+    prec = JacobiPrec.from_operator(op)
+
+    def phase(l, s):
+        layout = fi.SlabLayout(l=l, RB=l + 1)
+        IS = fi.scal_layout(l)
+        hosts = [fi.host_idx(layout, 2 * l + 3 + c) for c in range(s)]
+        scal = torch.randn(s, IS["size"], generator=gen, dtype=torch.float64,
+                           device=dev)
+        scal[:, IS["dlt_safe"]] = 1.25
+        scal[:, IS["eta_new_safe"]] = 0.75
+        scal[:, IS["eta0_safe"]] = 1.5
+        idx = torch.tensor(hosts, dtype=torch.int32, device=dev)
+        S = torch.randn(s, layout.nv, op.n, generator=gen,
+                        dtype=torch.float64, device=dev) * 1e-3
+        return layout, S, idx, scal
+
+    for l, s in ((2, 1), (2, 8), (9, 1)):
+        layout, S, idx, scal = phase(l, s)
+        fiter = kops.fused_iteration_factory(op, prec)(layout)
+        S_p, _ = fiter.plain(S, idx, scal)
+        S_k, d_k = fiter(S.clone(), idx, scal)
+        same = bool(torch.equal(S_k, S_p))
+        for c in range(s if s > 1 else 0):
+            S_1, d_1 = fiter(S[c].clone(), idx[c], scal[c])
+            same = same and bool(torch.equal(S_1, S_k[c])
+                                 and torch.equal(d_1, d_k[c]))
+        key = f"ell_l{l}_s{s}"
+        rows_bitwise[key] = same
+        del S_p, S_k
+        if s == 1:
+            S, idx, scal = S[0], idx[0], scal[0]
+        fns[key] = (lambda f=fiter, S=S, i=idx, c=scal: f(S, i, c))
+
+    # the halo plug-in on shard 1 of 4, fed the in-process halo
+    plan = partition_spd(op, N_SHARDS)
+    layout, S, idx, scal = phase(2, 1)
+    S, idx, scal = S[0], idx[0], scal[0]
+    nl = op.n // N_SHARDS
+    pos = fi.idx_layout(2)["z_top"]
+    zt = S.index_select(0, idx[pos:pos + 1])[0].reshape(N_SHARDS, nl)
+    ext = halo_exchange(zt, plan.send_up, plan.send_dn)
+    loc = {f: getattr(plan, f)[1]
+           for f in ("cols", "vals", "send_up", "send_dn")}
+    inv = prec.inv_diag[nl:2 * nl].contiguous()
+    halo = fi.build_fused_iteration(
+        layout, fused_spmv_local(op, loc, N_SHARDS, lambda z: ext[1]), inv)
+    S_s = S[:, nl:2 * nl].contiguous()
+    S_p, _, _ = ref.fused_iter_unfused(S_s, idx, scal, halo.spmv.expr,
+                                       lambda v: inv * v, layout)
+    rows_bitwise["ell_halo_l2"] = bool(torch.equal(
+        halo(S_s.clone(), idx, scal)[0], S_p))
+    fns["ell_halo_l2"] = (lambda: halo(S_s, idx, scal))
+
+    for s in (1, 8):
+        X = torch.randn(s, op.n, generator=gen, dtype=torch.float64,
+                        device=dev)
+        if s == 1:
+            X = X[0]
+        rows_bitwise[f"ell_spmv_s{s}"] = bool(torch.equal(
+            ell_spmv.ell_spmv(X, op.cols, op.vals),
+            ell_spmv.ell_spmv_plain(X, op.cols, op.vals)))
+        fns[f"ell_spmv_s{s}"] = (
+            lambda X=X: ell_spmv.ell_spmv(X, op.cols, op.vals))
 
 
 def main_solve(dev) -> dict:

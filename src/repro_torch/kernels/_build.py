@@ -46,7 +46,7 @@ SOURCES = (
     "fused_axpy.cu",
     "decode_attention.cu",
 )
-HEADERS = ("fused_iter.cuh",)
+HEADERS = ("fused_iter.cuh", "bulk_copy.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")

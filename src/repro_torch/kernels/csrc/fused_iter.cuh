@@ -24,10 +24,21 @@
 // * The stencil and ELL SPMVs read the ring-top row at other blocks'
 //   columns, so the wrapper's first launch copies that row to its own
 //   buffer (the Pallas wrapper's `prepare(z_top)`); no block reads a row
-//   another block writes.
-// * The ELL plug-in gathers from that copy, one row of W slots per thread
-//   (row-major (n, W) cols/vals, so a warp's slot loads are strided), and
-//   sums the slots in ell_rowsum's left-to-right order.
+//   another block writes.  No row of the phase writes the ring-top row
+//   either (kernels/fused_iter.py `check_z_top_not_written`), so the
+//   staged ELL kernel below reads it in place and takes no copy.
+// * The ELL plug-in gathers from that copy, one row of W slots per thread,
+//   and sums the slots in ell_rowsum's left-to-right order.  Its cols and
+//   vals are row-major (n, W), so a thread reading its own row's slots
+//   from device memory makes a warp's slot loads strided.  The staged ELL
+//   kernel (fused_iter_kernel_staged) copies each block's 256-row tile of
+//   cols and vals, two contiguous spans, into shared memory by two 1-D
+//   bulk copies on an mbarrier (bulk_copy.cuh; a ragged last tile or a
+//   misaligned base by coalesced ordinary loads into the same buffer), and
+//   the threads sum their rows from there, ELL_CHUNK gathers issued before
+//   their sums.  A W too wide for ELL_TILE_BYTES (the wrapper's plan,
+//   kernels/fused_iter.py `ell_tile_plan`) keeps the direct reads, and so
+//   do the halo plug-in and the runtime-depth kernel.
 // * Store order and masks follow the plain version exactly: every mask is a
 //   select, and a masked-off row write (which in the plain version stores
 //   the row's original value back) is skipped only when no earlier write of
@@ -66,14 +77,27 @@
 //   every column's rows and dots are bitwise those of a single-column
 //   launch.  s = 1 is the single-column launch.  The bound is s times the
 //   slab bytes of one column plus the shared operator data once.
+// * The staged ELL kernel takes the slab in one block per row tile instead
+//   (a grid of one dimension): the block stages its tile of cols and vals
+//   once and runs the vector phase of column 0, 1, ..., s - 1 in turn from
+//   that one copy, so the operator (66 MB at the ice sheet's 500 000 rows,
+//   more than the L2) comes from device memory once a launch and not once
+//   a column.  Each column's rows, block tree and partials sum are still
+//   the single-column launch's.
 #pragma once
 
 #include <cuda_runtime.h>
+
+#include <cstdint>
+
+#include "bulk_copy.cuh"
 
 namespace fi {
 
 constexpr int BLOCK = 256;
 constexpr int LMAX = 8;
+constexpr int ELL_CHUNK = 8;                // gathers issued before their sums
+constexpr int ELL_TILE_BYTES = 64 * 1024;   // most a staged tile may take
 
 enum { SPMV_2D5 = 0, SPMV_3D7 = 1, SPMV_3D27 = 2, SPMV_DIAG = 3,
        SPMV_ELL = 4, SPMV_2D5_HALO = 5, SPMV_3D7_HALO = 6,
@@ -99,18 +123,46 @@ struct Spmv {
   const double* d;     // diagonal (SPMV_DIAG)
   int nx, ny, nz;
   double coef;         // eps_z (3D7) or centre weight (3D27)
-  const int* cols;     // (n, w) ELL column indices (SPMV_ELL)
-  const double* vals;  // (n, w) ELL values (SPMV_ELL)
+  const int* cols;     // (n, w) ELL column indices (SPMV_ELL), or the
+                       // block's staged (BLOCK, w) tile of them
+  const double* vals;  // (n, w) ELL values (SPMV_ELL), or the staged tile
   int w;               // ELL slots per row
 };
 
+// An ELL row from the staged tile: ell_rowsum's chain, acc = v_0 z_0, then
+// acc = acc + v_s z_s in slot order, the gathers of ELL_CHUNK slots issued
+// before any is summed (the same sums as the direct loop below).
+__device__ __forceinline__ double ell_row_staged(
+    const double* v, const int* c, int w, const double* __restrict__ z) {
+  double acc = 0.0;
+  for (int s0 = 0; s0 < w; s0 += ELL_CHUNK) {
+    double g[ELL_CHUNK];
+#pragma unroll
+    for (int u = 0; u < ELL_CHUNK; ++u)
+      g[u] = (s0 + u < w) ? __ldg(z + c[s0 + u]) : 0.0;
+#pragma unroll
+    for (int u = 0; u < ELL_CHUNK; ++u) {
+      if (s0 + u < w) {
+        const double p = v[s0 + u] * g[u];
+        acc = (s0 + u == 0) ? p : acc + p;
+      }
+    }
+  }
+  return acc;
+}
+
 // az[j] with the plain version's term order; grid points outside the domain
-// read 0.0, as the zero-padded plain expression does.
-template <int KIND>
+// read 0.0, as the zero-padded plain expression does.  TILE: the ELL
+// plug-in reads row j's slots from the block's staged tile (sp.cols and
+// sp.vals point there), at the thread's row of it.
+template <int KIND, bool TILE = false>
 __device__ __forceinline__ double spmv_at(const Spmv& sp, long long j,
                                           double zj) {
   if constexpr (KIND == SPMV_DIAG) {
     return sp.d[j] * zj;
+  } else if constexpr (KIND == SPMV_ELL && TILE) {
+    const int r = threadIdx.x * sp.w;
+    return ell_row_staged(sp.vals + r, sp.cols + r, sp.w, sp.z);
   } else if constexpr (KIND == SPMV_ELL || KIND == SPMV_ELL_HALO) {
     const int* c = sp.cols + j * sp.w;
     const double* v = sp.vals + j * sp.w;
@@ -284,8 +336,9 @@ __device__ __forceinline__ void block_setup(
 // the compile-time kernel slower (scripts/superkernel_ab.py sets two
 // checkouts side by side).
 // Every operand row is loaded before any store; the (2l+1) dot-block
-// products are taken after the stores.
-template <int KIND, bool STABLE, bool PREC, int LC, class V>
+// products are taken after the stores.  TILE: the SPMV reads the staged
+// ELL tile (spmv_at).
+template <int KIND, bool STABLE, bool PREC, int LC, class V, bool TILE = false>
 __device__ __forceinline__ void vector_phase(
     double* S, long long ld, int rb, int l, const int* __restrict__ idx,
     const double* __restrict__ scal, const int* __restrict__ store_fill,
@@ -304,7 +357,7 @@ __device__ __forceinline__ void vector_phase(
   const double uim1 = row(idx[ix.U_IM1])[j];
 
   // ---- (K1) SPMV + pointwise preconditioner
-  const double az = spmv_at<KIND>(sp, j, zt);
+  const double az = spmv_at<KIND, TILE>(sp, j, zt);
   const double u_new0 = az - scal[SIG_I] * ui;
   const double u_new =
       late ? (u_new0 - scal[GAM_NEW] * ui - scal[D2] * uim1) / scal[DLT_SAFE]
@@ -442,6 +495,83 @@ __global__ void __launch_bounds__(BLOCK)
   block_partials<ND>(red, ND, part);
 }
 
+// The compile-time kernel for the ELL plug-in with its operator staged:
+// block b stages rows [b BLOCK, b BLOCK + BLOCK) of cols and vals in
+// dynamic shared memory ((BLOCK, w) values, then (BLOCK, w) indices; both
+// spans 16-byte aligned), by bulk copy if b < bulk_tiles, else by ordinary
+// loads, and then runs the vector phase of each of the slab's s columns
+// in turn from that tile, each column's products through its own block
+// tree into its own partials.  It gathers from the column's ring-top row
+// in place: no row of the phase writes it (check_z_top_not_written in
+// kernels/fused_iter.py), so no copy is taken.  Between two columns no
+// barrier is needed:
+// the threads that read red[k BLOCK] for the partials do so before the
+// next column's block_setup barrier, and red is written after it.
+template <int KIND, int L, bool STABLE, bool PREC>
+__global__ void __launch_bounds__(BLOCK)
+    fused_iter_kernel_staged(double* S, long long n, long long ld,
+                             long long cs, int rb, int s,
+                             const int* __restrict__ idx_g,
+                             const double* __restrict__ scal_g, Spmv sp,
+                             const double* __restrict__ inv_diag,
+                             double* __restrict__ part,
+                             long long bulk_tiles) {
+  constexpr int ND = 2 * L + 1;
+  __shared__ int idx[8 * L + 9];
+  __shared__ double scal[8 + L];
+  __shared__ int store_fill[L], store_rec[L];
+  __shared__ double red[ND * BLOCK];
+  __shared__ __align__(8) uint64_t bar;
+  extern __shared__ __align__(16) unsigned char tile[];
+  const int tid = threadIdx.x, w = sp.w;
+  const long long r0 = (long long)blockIdx.x * BLOCK;
+  const long long j = r0 + tid;
+  double* const tv = (double*)tile;
+  int* const tc = (int*)(tile + (size_t)BLOCK * w * sizeof(double));
+  const bool by_copy = blockIdx.x < bulk_tiles;
+  if (by_copy) {
+    if (tid == 0) {
+      const uint32_t vbytes = (uint32_t)(BLOCK * w * sizeof(double));
+      const uint32_t cbytes = (uint32_t)(BLOCK * w * sizeof(int));
+      bulk::mbar_init(&bar, 1);
+      bulk::mbar_init_fence();
+      bulk::mbar_expect_tx(&bar, vbytes + cbytes);
+      bulk::copy(tv, sp.vals + r0 * w, vbytes, &bar);
+      bulk::copy(tc, sp.cols + r0 * w, cbytes, &bar);
+    }
+  } else {
+    const int ne = (int)((n - r0 < BLOCK ? n - r0 : BLOCK) * w);
+    const long long e0 = r0 * w;
+    for (int e = tid; e < ne; e += BLOCK) {
+      tv[e] = sp.vals[e0 + e];
+      tc[e] = sp.cols[e0 + e];
+    }
+  }
+  __syncthreads();  // the barrier initialised, or the tile loaded
+  Spmv spt = sp;
+  spt.cols = tc;
+  spt.vals = tv;
+  for (int c = 0; c < s; ++c) {
+    block_setup(L, idx_g + (long long)c * (8 * L + 9),
+                scal_g + (long long)c * (8 + L), idx, scal, store_fill,
+                store_rec);
+    if (c == 0 && by_copy) bulk::mbar_wait(&bar, 0);
+    spt.z = S + c * cs + (long long)idx[Ix(L).Z_TOP] * ld;
+    RegVals<L> v;
+    if (j < n) {
+      vector_phase<KIND, STABLE, PREC, L, RegVals<L>, true>(
+          S + c * cs, ld, rb, L, idx, scal, store_fill, store_rec, spt,
+          inv_diag, v);
+    } else {
+#pragma unroll
+      for (int k = 0; k < ND; ++k) v.prod(k) = 0.0;
+    }
+#pragma unroll
+    for (int k = 0; k < ND; ++k) red[k * BLOCK + tid] = v.prod(k);
+    block_partials<ND>(red, ND, part + (long long)c * ND * gridDim.x);
+  }
+}
+
 // The same vector phase with the depth l a runtime argument, for l > LMAX:
 // the per-thread values in dynamic shared memory (rt_smem_bytes(l)).
 template <int KIND, bool STABLE, bool PREC>
@@ -509,6 +639,8 @@ struct Args {
   double* part;       // (s, 2l + 1, nblocks)
   int nblocks;
   double* partials;   // (s, 2l + 1)
+  int tile_bytes;     // the staged ELL kernel's tile (0: not staged)
+  long long bulk_tiles;  // its tiles that arrive by bulk copy
   cudaStream_t stream;
 };
 
@@ -536,6 +668,37 @@ cudaError_t launch(Args a) {
   fused_iter_kernel<KIND, L, STABLE, PREC><<<grid, BLOCK, 0, a.stream>>>(
       a.S, a.n, a.ld, a.cs, a.rb, a.idx, a.scal, a.sp, a.zs, a.inv_diag,
       a.part);
+  sum_partials<<<dim3(2 * L + 1, a.s), BLOCK, 0, a.stream>>>(
+      a.part, a.nblocks, a.partials);
+  return cudaGetLastError();
+}
+
+// The staged ELL kernel: one block a row tile for all s columns, no copy
+// of the ring-top rows (zbuf unused).  It opts in to its tile's dynamic
+// shared memory once per device.
+template <int KIND, int L, bool STABLE, bool PREC>
+cudaError_t launch_staged(Args a) {
+  static int allowed[64] = {};
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev >= 64 || a.tile_bytes != BLOCK * a.sp.w * 12 ||
+      a.tile_bytes > ELL_TILE_BYTES || a.bulk_tiles < 0 ||
+      a.bulk_tiles > a.n / BLOCK ||
+      (a.bulk_tiles > 0 && (((uintptr_t)a.sp.cols | (uintptr_t)a.sp.vals) %
+                            bulk::ALIGN) != 0))
+    return cudaErrorInvalidValue;
+  if (allowed[dev] < a.tile_bytes) {
+    e = cudaFuncSetAttribute(fused_iter_kernel_staged<KIND, L, STABLE, PREC>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             a.tile_bytes);
+    if (e != cudaSuccess) return e;
+    allowed[dev] = a.tile_bytes;
+  }
+  fused_iter_kernel_staged<KIND, L, STABLE, PREC>
+      <<<a.nblocks, BLOCK, (size_t)a.tile_bytes, a.stream>>>(
+          a.S, a.n, a.ld, a.cs, a.rb, a.s, a.idx, a.scal, a.sp, a.inv_diag,
+          a.part, a.bulk_tiles);
   sum_partials<<<dim3(2 * L + 1, a.s), BLOCK, 0, a.stream>>>(
       a.part, a.nblocks, a.partials);
   return cudaGetLastError();
@@ -581,6 +744,16 @@ cudaError_t dispatch(int l, bool stable, bool prec, const Args& a) {
                 : launch_rt<KIND, false, false>(a, l);
   } else {
     if (l != L) return dispatch<KIND, L + 1>(l, stable, prec, a);
+    if constexpr (KIND == SPMV_ELL) {
+      if (a.tile_bytes > 0) {
+        if (stable)
+          return prec ? launch_staged<KIND, L, true, true>(a)
+                      : launch_staged<KIND, L, true, false>(a);
+        return prec ? launch_staged<KIND, L, false, true>(a)
+                    : launch_staged<KIND, L, false, false>(a);
+      }
+    }
+    if (a.tile_bytes != 0) return cudaErrorInvalidValue;
     if (stable)
       return prec ? launch<KIND, L, true, true>(a)
                   : launch<KIND, L, true, false>(a);
@@ -599,7 +772,9 @@ cudaError_t dispatch(int l, bool stable, bool prec, const Args& a) {
 // for a block of its columns (a virtual shard's, updated in place).
 // `s` columns, `cs` elements apart in S (s = 1: one column); idx, scal,
 // zbuf (`zs` apart: n for the ring-top copies), part and partials hold one
-// row per column.
+// row per column.  `tile_bytes` > 0 (the ELL plug-in at l <= LMAX only)
+// launches the staged ELL kernel with that tile, its first `bulk_tiles`
+// tiles by bulk copy; the runtime-depth kernel ignores both.
 // NAME_smem_optin writes the current device's largest dynamic shared memory
 // a block can opt in to, which bounds the runtime-depth kernel.
 #define FI_DEFINE_ENTRY(NAME, KIND)                                          \
@@ -609,7 +784,8 @@ cudaError_t dispatch(int l, bool stable, bool prec, const Args& a) {
                       long long zs, const void* inv_diag, void* part,        \
                       int nblocks, void* partials, int nx, int ny, int nz,   \
                       double coef, const void* d, const void* cols,          \
-                      const void* vals, int w, void* stream) {               \
+                      const void* vals, int w, int tile_bytes,               \
+                      long long bulk_tiles, void* stream) {                  \
     if (s < 1 || s > 65535) return (int)cudaErrorInvalidValue;               \
     fi::Args a;                                                              \
     a.S = (double*)S;                                                        \
@@ -635,6 +811,8 @@ cudaError_t dispatch(int l, bool stable, bool prec, const Args& a) {
     a.part = (double*)part;                                                  \
     a.nblocks = nblocks;                                                     \
     a.partials = (double*)partials;                                          \
+    a.tile_bytes = tile_bytes;                                               \
+    a.bulk_tiles = bulk_tiles;                                               \
     a.stream = (cudaStream_t)stream;                                         \
     return (int)fi::dispatch<KIND, 1>(l, stable != 0, prec != 0, a);         \
   }                                                                          \

@@ -10,12 +10,13 @@ is cast to it first, as the plain version does.
 ``x`` may be an (s, n) slab of s vectors, one a request (the JAX package
 vmaps its kernel over the slab): one launch reads each tile of cols and
 vals once for all s vectors and returns (s, R), each row bitwise the
-single-vector result.  A launch counts under ``ell_spmv`` for one vector
-and ``ell_spmv_slab`` for a slab.
+single-vector result.  A thread sums its row for ``slab_group(s)`` vectors
+together, their gathers in flight at once.  A launch counts under
+``ell_spmv`` for one vector and ``ell_spmv_slab`` for a slab.
 
 The kernel stages tiles of rows through shared memory; :func:`plan` is its
 launch plan (tile rows, ring stages, which tiles go by bulk copy, grid),
-chosen from the operator alone.
+chosen from the operator and the vectors a thread sums together.
 """
 
 from __future__ import annotations
@@ -29,10 +30,12 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.ref import ell_spmv_ref as ell_spmv_plain
 
 TILE_ROWS = (256, 128, 64, 32)  # rows a tile (threads a block), in order
-STAGES = 2                      # ring buffers a block
+STAGES = 2                      # ring buffers a block, one vector
+SLAB_STAGES = 1                 # ring buffers a block, a slab (room for L1)
 STAGE_BUDGET = 110 * 1024       # staged bytes a block: two blocks an SM
 BULK_ALIGN = 16                 # the bulk copy's address and size unit
 DIRECT_BLOCK = 256              # threads a block of the direct kernel
+SLAB_GROUP = 4                  # most vectors a thread sums together
 
 _SIGS = {
     "ell_spmv_launch": [ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
@@ -40,9 +43,9 @@ _SIGS = {
                         ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
                         ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
                         ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
-                        ctypes.c_void_p],
+                        ctypes.c_int, ctypes.c_void_p],
     "ell_spmv_occupancy": [ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                           ctypes.POINTER(ctypes.c_int)],
+                           ctypes.c_int, ctypes.POINTER(ctypes.c_int)],
 }
 
 
@@ -67,29 +70,43 @@ class EllPlan:
 
 
 def plan(rows: int, w: int, itemsize: int, cols_offset: int,
-         vals_offset: int, sms: int, occupancy) -> EllPlan:
+         vals_offset: int, sms: int, occupancy,
+         stages: int = STAGES) -> EllPlan:
     """The launch plan for ``rows`` x ``w`` slots of ``itemsize``-byte
-    values.  ``cols_offset`` and ``vals_offset`` are the base addresses
-    (only their residue mod 16 matters); ``occupancy(threads, smem_bytes)``
-    gives the blocks one SM holds, and ``sms`` the SMs, so the grid is one
-    wave.  Full tiles of an operator whose bases are both 16-byte aligned
-    go by bulk copy; the ragged last tile, and every tile of a misaligned
+    values on a ring of ``stages`` (``SLAB_STAGES`` for a slab).
+    ``cols_offset`` and ``vals_offset`` are the base addresses (only their
+    residue mod 16 matters); ``occupancy(threads, smem_bytes)`` gives the
+    blocks one SM holds, and ``sms`` the SMs, so the grid is one wave.
+    Full tiles of an operator whose bases are both 16-byte aligned go by
+    bulk copy; the ragged last tile, and every tile of a misaligned
     operator, by ordinary loads; an operator too wide for two stages of 32
     rows in ``STAGE_BUDGET`` runs the direct kernel."""
     slot_bytes = w * (itemsize + 4)
-    tile_rows = next((rb for rb in TILE_ROWS
-                      if STAGES * rb * slot_bytes <= STAGE_BUDGET), None)
-    if tile_rows is None:
+    if STAGES * 32 * slot_bytes > STAGE_BUDGET:
         blocks = max(1, -(-rows // DIRECT_BLOCK))
         return EllPlan(False, rows, w, DIRECT_BLOCK, 0, blocks, 0, blocks, 0)
+    tile_rows = next(rb for rb in TILE_ROWS
+                     if STAGES * rb * slot_bytes <= STAGE_BUDGET)
     tiles = -(-rows // tile_rows)
-    smem = STAGES * tile_rows * slot_bytes
+    smem = stages * tile_rows * slot_bytes
     aligned = (cols_offset % BULK_ALIGN == 0 and vals_offset % BULK_ALIGN == 0)
     # tile_rows is a multiple of 32, so a full tile's spans (tile_rows * w
     # elements of 4 or 8 bytes) start and end on 16-byte boundaries.
     bulk = rows // tile_rows if aligned else 0
     grid = max(1, min(tiles, sms * max(1, int(occupancy(tile_rows, smem)))))
-    return EllPlan(True, rows, w, tile_rows, STAGES, tiles, bulk, grid, smem)
+    return EllPlan(True, rows, w, tile_rows, stages, tiles, bulk, grid, smem)
+
+
+def slab_group(s: int) -> int:
+    """Vectors of an s-vector slab a thread sums together (the kernel's
+    template ``G``): the power of two at or above s, at most
+    ``SLAB_GROUP``, so that the gathers of a block's groups stay in L1
+    (``csrc/ell_spmv.cu``); a thread takes the slab's vectors in groups of
+    G from the first, the last group holding the rest."""
+    g = 1
+    while g < min(s, SLAB_GROUP):
+        g *= 2
+    return g
 
 
 def _checked(x: torch.Tensor, cols: torch.Tensor, vals: torch.Tensor):
@@ -118,12 +135,13 @@ def _checked(x: torch.Tensor, cols: torch.Tensor, vals: torch.Tensor):
 _plans: dict = {}
 
 
-def _plan_for(lib, cols: torch.Tensor, vals: torch.Tensor) -> EllPlan:
+def _plan_for(lib, cols: torch.Tensor, vals: torch.Tensor,
+              group: int) -> EllPlan:
     """The launch plan of this call, cached by what it depends on."""
     dev = vals.device
     rows, w = cols.shape
     key = (dev.index, rows, w, vals.dtype, cols.data_ptr() % BULK_ALIGN,
-           vals.data_ptr() % BULK_ALIGN)
+           vals.data_ptr() % BULK_ALIGN, group)
     p = _plans.get(key)
     if p is None:
         is_f32 = int(vals.dtype == torch.float32)
@@ -131,15 +149,15 @@ def _plan_for(lib, cols: torch.Tensor, vals: torch.Tensor) -> EllPlan:
         def occupancy(threads: int, smem: int) -> int:
             out = ctypes.c_int(0)
             with torch.cuda.device(dev):
-                _build.check(lib.ell_spmv_occupancy(is_f32, threads, smem,
-                                                    ctypes.byref(out)),
+                _build.check(lib.ell_spmv_occupancy(is_f32, group, threads,
+                                                    smem, ctypes.byref(out)),
                              "ell_spmv occupancy")
             return out.value
 
         p = _plans[key] = plan(
             rows, w, vals.element_size(), cols.data_ptr(), vals.data_ptr(),
             torch.cuda.get_device_properties(dev).multi_processor_count,
-            occupancy)
+            occupancy, STAGES if group == 1 else SLAB_STAGES)
     return p
 
 
@@ -154,13 +172,15 @@ def ell_spmv(x: torch.Tensor, cols: torch.Tensor,
     x = x.to(vals.dtype).contiguous()
     _checked(x, cols, vals)
     lib = _build.load("ell_spmv", _SIGS)
-    return _launch(lib, _plan_for(lib, cols, vals), x, cols, vals)
+    group = slab_group(x.shape[0]) if x.dim() == 2 else 1
+    return _launch(lib, _plan_for(lib, cols, vals, group), x, cols, vals,
+                   group)
 
 
 def _launch(lib, p: EllPlan, x: torch.Tensor, cols: torch.Tensor,
-            vals: torch.Tensor) -> torch.Tensor:
+            vals: torch.Tensor, group: int) -> torch.Tensor:
     """One launch of plan ``p`` on checked CUDA tensors (``x`` a vector or
-    an (s, n) slab)."""
+    an (s, n) slab, ``group`` of its vectors summed together)."""
     dev = vals.device
     out = torch.empty(x.shape[:-1] + (p.rows,), dtype=vals.dtype, device=dev)
     s = x.shape[0] if x.dim() == 2 else 1
@@ -169,7 +189,7 @@ def _launch(lib, p: EllPlan, x: torch.Tensor, cols: torch.Tensor,
             int(vals.dtype == torch.float32), int(p.staged),
             x.data_ptr(), cols.data_ptr(), vals.data_ptr(), out.data_ptr(),
             p.rows, p.w, p.tile_rows, p.stages, p.bulk_tiles, p.grid,
-            p.smem_bytes, s, x.shape[-1],
+            p.smem_bytes, s, x.shape[-1], group,
             torch.cuda.current_stream(dev).cuda_stream)
     _build.LAUNCHES["ell_spmv" if x.dim() == 1 else "ell_spmv_slab"] += 1
     _build.check(rc, "ell_spmv")

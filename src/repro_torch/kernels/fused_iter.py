@@ -31,6 +31,11 @@ Plug-ins come in two forms, as in the JAX package: single-device (the
 operand is the ring-top row itself) and halo-extended (a shard of a row
 partition: ``prepare(z_top)`` builds the extended operand outside the
 kernel, and the plug-in's expression reads it).
+
+The single-device ELL plug-in at l <= ``LMAX`` runs the staged ELL kernel
+when :func:`ell_tile_plan` stages it: one block a 256-row tile, its cols
+and vals copied to shared memory once and read there by every column of
+the slab in turn.
 """
 
 from __future__ import annotations
@@ -196,8 +201,9 @@ def written_rows(layout: SlabLayout, idx) -> set[int]:
 
 def check_z_top_not_written(layout: SlabLayout) -> None:
     """The superkernel reads the ring-top row at other blocks' columns
-    from a copy taken before the launch; that copy equals the slab row for
-    the whole launch only if no write targets it.  Verified here for every
+    from a copy taken before the launch (the staged ELL kernel from the
+    row itself); either holds the row's values for the whole launch only
+    if no write targets it.  Verified here for every
     cycle iteration index (the index vector is periodic in i past 2l)."""
     period = 3 * layout.RB
     for i in range(2 * layout.l + 2 * period):
@@ -322,10 +328,46 @@ _ARGTYPES = [ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
              ctypes.c_int, ctypes.c_void_p,
              ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_double,
              ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-             ctypes.c_void_p]
+             ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p]
 MAX_SLAB = 65535     # columns of one slab launch (the second grid dimension)
 BLOCK = 256          # threads per block, fixed in csrc/fused_iter.cuh
 LMAX = 8             # deepest pipeline instantiated at compile time
+ELL_TILE_BYTES = 64 * 1024   # most shared memory a staged ELL tile takes
+BULK_ALIGN = 16      # the bulk copy's address and size unit
+
+
+@dataclasses.dataclass(frozen=True)
+class EllTilePlan:
+    """How the ELL plug-in's launch covers an (n, w) operator.
+
+    ``staged``: the staged ELL kernel, one block for each of the ``tiles``
+    BLOCK-row tiles, looping over the slab's columns; tiles
+    ``0 .. bulk_tiles - 1`` arrive by bulk copy, the rest (the ragged last
+    tile, every tile of a misaligned operator) by ordinary loads, into
+    ``tile_bytes`` of dynamic shared memory.  Otherwise the direct kernel:
+    a (tiles, s) grid, one block a tile of one column, reading the slots
+    from device memory."""
+    staged: bool
+    tiles: int
+    bulk_tiles: int
+    tile_bytes: int
+
+
+def ell_tile_plan(n: int, w: int, cols_offset: int,
+                  vals_offset: int) -> EllTilePlan:
+    """The ELL plug-in's launch plan for ``n`` rows of ``w`` slots (fp64
+    values, int32 columns), from the operator alone.  ``cols_offset`` and
+    ``vals_offset`` are the base addresses (only their residue mod 16
+    matters).  A tile of BLOCK rows takes BLOCK * w * 12 bytes; wider than
+    ``ELL_TILE_BYTES``, the direct kernel runs.  A full tile's spans
+    (BLOCK * w elements of 4 or 8 bytes) start and end on 16-byte
+    boundaries when both bases do.  A few integer operations: no cache."""
+    tiles = -(-n // BLOCK)
+    tile_bytes = BLOCK * w * (8 + 4)
+    if tile_bytes > ELL_TILE_BYTES:
+        return EllTilePlan(False, tiles, 0, 0)
+    aligned = cols_offset % BULK_ALIGN == 0 and vals_offset % BULK_ALIGN == 0
+    return EllTilePlan(True, tiles, n // BLOCK if aligned else 0, tile_bytes)
 
 
 def runtime_smem_bytes(l: int) -> int:
@@ -453,10 +495,15 @@ def build_fused_iteration(
         if d is not None:
             _check(d, "d", torch.float64, (n,), dev)
         cols, vals, w = spmv.cols, spmv.vals, 0
+        tile_bytes, bulk_tiles = 0, 0
         if cols is not None:
             w = int(cols.shape[1])
             _check(cols, "cols", torch.int32, (n, w), dev)
             _check(vals, "vals", torch.float64, (n, w), dev)
+            if spmv.kind == "ell" and l <= LMAX:
+                tp = ell_tile_plan(n, w, cols.data_ptr(), vals.data_ptr())
+                if tp.staged:
+                    tile_bytes, bulk_tiles = tp.tile_bytes, tp.bulk_tiles
         nb = (n + BLOCK - 1) // BLOCK
         zs = n
         if spmv.prepare is not None:
@@ -467,8 +514,8 @@ def build_fused_iteration(
             _check(zbuf, "prepared operand", torch.float64,
                    (spmv.ext_len,), dev)
             zs = spmv.ext_len
-        elif spmv.kind == "diagonal":
-            zbuf = None
+        elif spmv.kind == "diagonal" or tile_bytes:
+            zbuf = None     # no operand, or the staged ELL kernel's in place
         else:
             zbuf = torch.empty(lead + (n,), dtype=S.dtype, device=dev)
         part = torch.empty(lead + (nd, nb), dtype=S.dtype, device=dev)
@@ -487,7 +534,8 @@ def build_fused_iteration(
                     part.data_ptr(), nb, partials.data_ptr(), nx, ny, nz,
                     spmv.coef, None if d is None else d.data_ptr(),
                     None if cols is None else cols.data_ptr(),
-                    None if vals is None else vals.data_ptr(), w, stream)
+                    None if vals is None else vals.data_ptr(), w,
+                    tile_bytes, bulk_tiles, stream)
         _build.LAUNCHES[launch_key(spmv.kind, l, slab)] += 1
         _build.check(rc, name)
         return S, partials

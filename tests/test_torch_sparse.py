@@ -319,3 +319,191 @@ def test_ell_kernels_bitwise_on_card(cuda_device):
                 S_k, d_k = fiter(S.clone(), idx, sc)
                 assert torch.equal(S_k, S_p)
                 torch.testing.assert_close(d_k, d_p, rtol=1e-12, atol=1e-12)
+
+
+# ---- the staged ELL plug-in and the grouped slab form --------------------
+
+BLOCK_SMEM_OPTIN = 232448   # shared memory a block may opt in to (H100)
+
+
+def _staged_smem_bytes(tile_bytes, l, block):
+    """Shared memory a block of the staged ELL kernel takes at depth l
+    (``fused_iter_kernel_staged`` in csrc/fused_iter.cuh): the tile, then
+    its static arrays (the 2l+1 products of each thread, the index and
+    scalar vectors, the store masks, the barrier)."""
+    return tile_bytes + (2 * l + 1) * block * 8 + (8 * l + 9) * 4 + \
+        (8 + l) * 8 + 2 * l * 4 + 8
+
+
+@pytest.mark.parametrize("s", [1, 2, 3, 8, 9])
+@pytest.mark.parametrize("n,w", [(1, 11), (256, 11), (4097, 11),
+                                 (1000, 12), (777, 21), (300, 22)])
+def test_ell_tile_plan_covers_every_row_and_column_once(n, w, s):
+    """The superkernel ELL plug-in's launch plan, walked in its kernel's
+    order for aligned and misaligned bases: staged, one block a BLOCK-row
+    tile runs every column of the slab; direct, a (tiles, s) grid.  Every
+    (row, column) is covered once, each column's blocks are the s = 1
+    launch's partition (so its partials come from the same blocks), a
+    bulk-copied tile is full with 16-byte-aligned spans, a misaligned base
+    sends every tile through ordinary loads, and a block's shared memory
+    stays within the budget at every compile-time depth."""
+    from repro_torch.kernels import fused_iter as tfi
+
+    B = tfi.BLOCK
+    single = [(r0, min(B, n - r0)) for r0 in range(0, n, B)]
+    for offsets in ((0, 0), (4, 8), (0, 8), (12, 0)):
+        p = tfi.ell_tile_plan(n, w, *offsets)
+        assert p.staged == (B * w * 12 <= tfi.ELL_TILE_BYTES)
+        assert p.tiles == len(single)
+        seen = np.zeros((s, n), np.int64)
+        blocks_of = [[] for _ in range(s)]
+        grid = [(t, c) for t in range(p.tiles) for c in range(s)] \
+            if not p.staged else [(t, None) for t in range(p.tiles)]
+        for t, col in grid:
+            r0, nr = t * B, min(B, n - t * B)
+            for c in (range(s) if col is None else [col]):
+                seen[c, r0:r0 + nr] += 1
+                blocks_of[c].append((r0, nr))
+            if t < p.bulk_tiles:
+                assert nr == B
+                for off, size in ((offsets[0], 4), (offsets[1], 8)):
+                    assert (off + r0 * w * size) % tfi.BULK_ALIGN == 0
+                    assert (nr * w * size) % tfi.BULK_ALIGN == 0
+        assert (seen == 1).all()
+        assert all(sorted(b) == single for b in blocks_of)
+        aligned = offsets[0] % 16 == 0 and offsets[1] % 16 == 0
+        if p.staged:
+            assert p.tile_bytes == B * w * 12 <= tfi.ELL_TILE_BYTES
+            assert p.bulk_tiles == (n // B if aligned else 0)
+            for l in range(1, tfi.LMAX + 1):
+                assert _staged_smem_bytes(p.tile_bytes, l, B) \
+                    <= BLOCK_SMEM_OPTIN
+        else:
+            assert p.bulk_tiles == 0 and p.tile_bytes == 0
+
+
+@pytest.mark.parametrize("s", [1, 2, 3, 8, 9, 32])
+@pytest.mark.parametrize("rows,w", [(4097, 11), (512, 12), (100, 400)])
+def test_ell_slab_groups_cover_every_row_and_vector_once(rows, w, s):
+    """``ell_spmv``'s slab launch, walked in its kernel's order: the plan's
+    tiles (or the direct kernel's blocks) over the rows, and in each row
+    the vectors in groups of ``slab_group(s)`` from the first, the last
+    holding the rest.  Every (row, vector) is summed once, the group is a
+    power of two no wider than ``SLAB_GROUP`` and wastes less than one
+    group's lanes, a slab's ring has ``SLAB_STAGES`` stages over the
+    single vector's tiles, and a single vector keeps the single-vector
+    kernel and its ring."""
+    sms, per_sm = 132, 3
+    g = tel.slab_group(s)
+    assert g & (g - 1) == 0 and min(s, tel.SLAB_GROUP) <= g <= tel.SLAB_GROUP
+    assert (g == 1) == (s == 1)
+    stages = tel.STAGES if g == 1 else tel.SLAB_STAGES
+    p = tel.plan(rows, w, 8, 0, 0, sms, lambda threads, smem: per_sm, stages)
+    one = tel.plan(rows, w, 8, 0, 0, sms, lambda threads, smem: per_sm)
+    assert (p.staged, p.tile_rows, p.tiles, p.bulk_tiles) == \
+        (one.staged, one.tile_rows, one.tiles, one.bulk_tiles)
+    if p.staged:
+        assert p.stages == stages
+        assert p.smem_bytes == stages * p.tile_rows * w * 12
+    seen = np.zeros((s, rows), np.int64)
+    lanes = 0
+    for blk in range(p.grid):
+        tiles = range(blk, p.tiles, p.grid) if p.staged else [blk]
+        for t in tiles:
+            r0 = t * p.tile_rows
+            nr = min(p.tile_rows, rows - r0)
+            for k0 in range(0, s, g):
+                ng = min(g, s - k0)
+                seen[k0:k0 + ng, r0:r0 + nr] += 1
+                lanes += g * nr
+    assert (seen == 1).all()
+    assert lanes - s * rows < g * rows
+
+
+def _slab_triples(layout, n, s, rng, dev):
+    """A slab of s columns, each at its own cycle index (pipeline fill and
+    steady state), with random rows and scalars."""
+    from repro_torch.kernels import fused_iter as tfi
+
+    l = layout.l
+    IS = tfi.scal_layout(l)
+    hosts = [tfi.host_idx(layout, i) for i in
+             [2 * l + 3 + c for c in range(s - 1)] + [l - 1]][:s]
+    scal = rng.standard_normal((s, IS["size"]))
+    scal[:, IS["dlt_safe"]] = 1.25
+    scal[:, IS["eta_new_safe"]] = 0.75
+    scal[:, IS["eta0_safe"]] = 1.5
+    return convert.vector_phase(rng.standard_normal((s, layout.nv, n)),
+                                hosts, scal, dev)
+
+
+def _ell_slab_cases(rng, dev):
+    """The ice-sheet stand-in (W = 11, a ragged last tile), the same arrays
+    one element off the 16-byte grid (every tile by ordinary loads), an
+    even W over an exact tile count, and a W too wide to stage."""
+    op = tsp.rcm_reorder(tsp.random_fem_icesheet(48, 10, 6, 4,
+                                                 device=dev))[0]
+
+    def offset_copy(t, off):
+        buf = torch.zeros(t.numel() + off, dtype=t.dtype, device=dev)
+        buf[off:] = t.reshape(-1)
+        return buf[off:].view(t.shape)
+
+    yield "icesheet", op.cols, op.vals
+    yield "misaligned", offset_copy(op.cols, 1), offset_copy(op.vals, 1)
+    yield "w12", *_ell_case(rng, 1024, 12, 1024, dev)
+    yield "w22_direct", *_ell_case(rng, 700, 22, 700, dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("l", [1, 2, 3, 8, 9])
+def test_slab_ell_superkernel_bitwise_on_card(cuda_device, l):
+    """The ELL superkernel's slab form at s in {1, 2, 3, 8, 9}: every row
+    bitwise the plain version's and every column's rows and partials
+    bitwise those of its single-column launch (partials within 1e-12 of
+    the plain sums, which take another order)."""
+    from repro_torch.kernels import fused_iter as tfi
+
+    rng = np.random.default_rng(23 + l)
+    for name, cols, vals in _ell_slab_cases(rng, cuda_device):
+        n = cols.shape[0]
+        inv = torch.tensor(rng.uniform(0.5, 2.0, n), device=cuda_device)
+        layout = tfi.SlabLayout(l=l, RB=max(l + 1, 3))
+        fiter = tfi.build_fused_iteration(layout, tfi.ell_spmv(cols, vals),
+                                          inv)
+        for s in (1, 2, 3, 8, 9):
+            S, idx, sc = _slab_triples(layout, n, s, rng, cuda_device)
+            S_p, d_p = fiter.plain(S, idx, sc)
+            key = tfi.launch_key("ell", l, slab=True)
+            before = _launches(key)
+            S_k, d_k = fiter(S.clone(), idx, sc)
+            assert _launches(key) == before + 1
+            assert torch.equal(S_k, S_p), (name, s)
+            torch.testing.assert_close(d_k, d_p, rtol=1e-12, atol=1e-12)
+            for c in range(s):
+                S_1, d_1 = fiter(S[c].clone(), idx[c], sc[c])
+                assert torch.equal(S_1, S_k[c]), (name, s, c)
+                assert torch.equal(d_1, d_k[c]), (name, s, c)
+
+
+@pytest.mark.cuda
+def test_ell_spmv_slab_bitwise_on_card(cuda_device):
+    """``ell_spmv``'s slab form on the same operators at s in
+    {1, 2, 3, 8, 9, 32}, fp64 and fp32: bitwise ``ell_spmv_plain`` and,
+    row by row, the single-vector launch."""
+    rng = np.random.default_rng(31)
+    for name, cols, vals in list(_ell_slab_cases(rng, cuda_device)) + [
+            ("w400_direct", *_ell_case(rng, 100, 400, 100, cuda_device))]:
+        n = cols.shape[0]
+        for s in (1, 2, 3, 8, 9, 32):
+            X = torch.tensor(rng.standard_normal((s, n + 13)),
+                             device=cuda_device)
+            for dt in (torch.float64, torch.float32):
+                v = vals.to(dt) if dt != vals.dtype else vals
+                before = _launches("ell_spmv_slab")
+                got = tel.ell_spmv(X, cols, v)
+                assert _launches("ell_spmv_slab") == before + 1
+                assert torch.equal(got, tel.ell_spmv_plain(X, cols, v)), (
+                    name, s, dt)
+                for c in range(s):
+                    assert torch.equal(got[c], tel.ell_spmv(X[c], cols, v))
