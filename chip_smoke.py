@@ -109,6 +109,17 @@ Phases, each printed as one JSON line; every phase raises on failure:
    ``stencil3d7`` and ``ell_spmv`` slab forms bitwise against the plain
    operators; the ``BENCH_serve.json`` replay, column by column.
 
+17. the telemetry ring, the stability governor and reduction-payload
+   chaos (``stability_phase``, after every earlier phase): phase 3's
+   solve with a telemetry ring, bitwise equal to it; the governed stable
+   solve of the same problem; profiler splits of plain, instrumented,
+   stable and governed iterations; icesheet3d at l = 4 under a 1e-5
+   payload fault, governed and not; the depth ladder from l = 16 under
+   30 % payload noise (the runtime-depth superkernel on its first rung,
+   attempts 16, 8, 4, 2, 1, a StagnationError); a governed slab of 8 ice
+   sheets; ``SolverService`` with ``telemetry_cap``, each retired request
+   carrying its ring.
+
 Every kernel row of phases 8 and 9 carries its device time (profiler)
 beside its event time.
 
@@ -1851,6 +1862,347 @@ def batched_serve_phase(dev, gpu, randn, phase_scal, lap, ice, op, prec, b,
     return launches, errs, timings
 
 
+# Phase 17 (stability): the telemetry ring, the governor, payload chaos and
+# the depth ladder.
+TEL_CAP = 512                   # stability: ring rows of the 2048^2 solves
+TURN_UPDATES = 2000             # stability: updates of each timed turn
+PROFILE_MAXIT = 100             # stability: updates of a profiled solve
+CHAOS_RECOVERY = dict(seed=7, payload_rel_amp=1e-5)    # the JAX bench's
+CHAOS_CATASTROPHIC = dict(seed=3, payload_rel_amp=0.3)  # the JAX bench's
+LADDER_L = 16                   # stability: where the depth ladder starts
+# The governor's patience at 2048^2: the default, max(32, 8l) = 32
+# updates, fires on the plateaus of this solve's residual, and each
+# replacement throws away the Krylov space (on the CPU at 512^2 the
+# default took 51 restarts and did not converge; 256 converged in 1 622
+# updates against the ungoverned 1 700).
+GOV_PATIENCE = 1024
+GOV_RING = 32768                # a ring that holds every governed iteration
+
+
+def stability_phase(dev, gpu, op, prec, b, solve_kw, main, main_digest,
+                    iop, iprec, ib, ice_kw) -> dict:
+    """Phase 17, the telemetry ring, the stability governor and
+    reduction-payload chaos on the card (every solve fused, Jacobi):
+
+    1. ``main_solve`` again with ``telemetry_cap=TEL_CAP``: x, history
+       and host syncs bitwise phase 3's; the ring's iter/upd/restart
+       columns against the history; ms an iteration of
+       ``TURN_UPDATES``-update solves in turns, plain, instrumented,
+       instrumented, plain (the host's pace drifts over the script);
+    2. the same problem with ``recurrence="stable"`` and
+       ``GovernorConfig(patience=GOV_PATIENCE)``: converged, the true
+       residual below 10 tol; updates, restarts, replacements, ms an
+       iteration; ``GovernorConfig()`` as it is beside it (recorded, not
+       asserted); and kernels and device us an iteration (profiler,
+       ``PROFILE_MAXIT`` updates) of the plain, instrumented, stable and
+       governed solves;
+    3. icesheet3d at l = 4 (its Chebyshev shifts) under
+       ``ChaosConfig(**CHAOS_RECOVERY)``, the JAX bench's tol 1e-5, maxit
+       400, max_restarts 120: the governed stable solve converged below
+       tol against the true residual (asserted), the ungoverned ghysels
+       solve's true residual (printed), the gap- and patience-arm
+       actions read from the ring;
+    4. the depth ladder: ``governed_solve`` at laplace2d 2048^2 from
+       l = ``LADDER_L`` under ``ChaosConfig(**CHAOS_CATASTROPHIC)``
+       (maxit 400, max_restarts 60, no shifts: they could not follow the
+       depth), fused, ``unroll=16``: attempts exactly 16, 8, 4, 2, 1 and a
+       ``StagnationError``; ``fused_iter_kernel_rt``'s launches on the
+       ladder, and its device ms a launch over a profiled 24-update
+       l = 16 solve;
+    5. a governed slab of ``SLAB_S`` ice-sheet right-hand sides (column
+       0 phase 7's b): every column converged below 10 tol, governor
+       vectors (SLAB_S, N_SLOTS), each column's replacements;
+    6. ``SolverService`` over icesheet3d (``use_kernel``), plcg,
+       ``telemetry_cap=256``, ``SERVE_REQUESTS`` requests: every retired
+       request carries its ring, which decodes, and one ring's
+       ``telemetry_track`` as a JSON string.
+
+    The launch counts are reset before each path and read after it.
+    Returns the launches of the phase's paths, summed."""
+    import numpy as np
+    import torch
+
+    from repro_torch.chaos import ChaosConfig, chaos_ops
+    from repro_torch.core import pipelined_cg
+    from repro_torch.core.chebyshev import shifts_for_operator
+    from repro_torch.core.types import TelemetrySlab
+    from repro_torch.kernels import _build
+    from repro_torch.obs import telemetry_track
+    from repro_torch.parallel.backends import LocalBackend
+    from repro_torch.parallel.worker import digest
+    from repro_torch.serve import SolverService, VirtualClock
+    from repro_torch.stability import (GovernorConfig, StagnationError,
+                                       diagnose, governed_solve)
+    from repro_torch.stability import model as GM
+
+    t_phase = time.perf_counter()
+    be = LocalBackend(device=dev)
+    out = {"phase": "stability", "gpu": gpu}
+    failed, launches = [], {}
+
+    def true_rel(aop, bb, x):
+        return float(torch.linalg.norm(bb - aop.apply(x))
+                     / torch.linalg.norm(bb))
+
+    def run(fn):
+        """fn() with the launch counts zeroed before and read after; its
+        wall seconds."""
+        torch.cuda.synchronize()
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        r = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = dict(_build.LAUNCHES)
+        for k, v in got.items():
+            launches[k] = launches.get(k, 0) + v
+        return r, wall, got
+
+    def actions(ring, l):
+        c = TelemetrySlab(cap=ring.shape[-2], l=l).unpack(
+            ring.cpu().numpy())
+        a = c["action"][c["iter"] >= 0]
+        return {"gap_arm": int((a == GM.ACTION_GAP_REPLACE).sum()),
+                "patience_arm": int((a == GM.ACTION_PATIENCE_REPLACE).sum()),
+                "stagnation": int((a == GM.ACTION_STAGNATED).sum())}
+
+    # ---- 1. telemetry, bitwise invisible --------------------------------
+    turns = {"plain": [], "instrumented": []}
+    for name in ("plain", "instrumented", "instrumented", "plain"):
+        kw = dict(solve_kw, maxit=TURN_UPDATES, tol=1e-30,
+                  telemetry_cap=TEL_CAP if name == "instrumented" else 0)
+        _, wall, lz = run(lambda: be.solve(op, b, prec=prec, **kw))
+        turns[name].append(1e3 * wall / max(lz.get("fused_iter", 0), 1))
+    r, wall, lz = run(lambda: be.solve(op, b, prec=prec, telemetry_cap=TEL_CAP,
+                                       **solve_kw))
+    phases = lz.get("fused_iter", 0)
+    cols = TelemetrySlab(cap=TEL_CAP, l=solve_kw["l"]).unpack(
+        r.telemetry.cpu().numpy())
+    hist = r.res_history.cpu().numpy()
+    written = cols["iter"] >= 0
+    rows = np.nonzero(written & (cols["rnorm"] >= 0))[0]
+    order = np.argsort(cols["iter"][written])
+    it, upd = cols["iter"][written][order], cols["upd"][written][order]
+    rst = cols["restart"][written][order] > 0
+    tel = {
+        "x_and_history_bitwise_main": (digest(r.x), digest(r.res_history))
+        == main_digest,
+        "host_syncs": [r.host_syncs, main["host_syncs"]],
+        "iters": int(r.iters), "restarts": int(r.restarts),
+        "vector_phases": phases,
+        "ms_per_iter": 1e3 * wall / max(phases, 1),
+        "ms_per_iter_turns": turns,
+        "main_ms_per_iter": main["ms_per_iter"],
+        # the ring holds the last TEL_CAP iterations, in a row
+        "ring_iter_is_last_rows": len(it) == TEL_CAP and bool(
+            (np.diff(it) == 1).all()),
+        "ring_rnorm_is_history": bool(all(
+            hist[int(cols["upd"][k])] == cols["rnorm"][k] for k in rows)),
+        "ring_upd_max_is_iters": int(upd.max()) == int(r.iters),
+        # updates never fall, and a restart row adds none
+        "ring_upd_steps": bool((np.diff(upd) >= 0).all()
+                               and (np.diff(upd)[rst[1:]] == 0).all()),
+        "ring_restart_rows": int(rst.sum()),
+        "ring_last_iter": int(it[-1])}
+    out["telemetry"] = tel
+    if not (tel["x_and_history_bitwise_main"]
+            and r.host_syncs == main["host_syncs"]
+            and tel["ring_iter_is_last_rows"] and tel["ring_rnorm_is_history"]
+            and tel["ring_upd_max_is_iters"] and tel["ring_upd_steps"]
+            and phases > 0):
+        failed.append("telemetry")
+    del r
+
+    # ---- 2. governed, clean ---------------------------------------------
+    for name, cfg in (("governed_clean",
+                       GovernorConfig(patience=GOV_PATIENCE)),
+                      ("governed_clean_default", GovernorConfig())):
+        r, wall, lz = run(lambda: be.solve(
+            op, b, prec=prec, recurrence="stable", governor=cfg,
+            telemetry_cap=GOV_RING, **solve_kw))
+        phases = lz.get("fused_iter", 0)
+        d = diagnose(r)
+        rel = true_rel(op, b, r.x)
+        out[name] = {
+            "patience": cfg.resolved_patience(solve_kw["l"]),
+            "telemetry_cap": GOV_RING,
+            "converged": d["converged"], "true_rel_residual": rel,
+            "iters": int(r.iters), "restarts": int(r.restarts),
+            "replacements": d["replacements"], "governor": d,
+            "actions_in_ring": actions(r.telemetry, solve_kw["l"]),
+            "vector_phases": phases, "wall_s": wall,
+            "ms_per_iter": 1e3 * wall / max(phases, 1),
+            "host_syncs": r.host_syncs}
+        del r
+    g = out["governed_clean"]
+    if not (g["converged"] and g["true_rel_residual"] < 10 * TOL
+            and g["vector_phases"] > 0):
+        failed.append("governed_clean")
+
+    prof = {}
+    short = dict(solve_kw, maxit=PROFILE_MAXIT, tol=1e-30)
+    for name, extra in (("plain", {}), ("instrumented",
+                                        {"telemetry_cap": TEL_CAP}),
+                        ("stable", {"recurrence": "stable"}),
+                        ("governed", {"recurrence": "stable",
+                                      "governor": GovernorConfig(
+                                          patience=GOV_PATIENCE)})):
+        kw = dict(short, **extra)
+        be.solve(op, b, prec=prec, **kw)           # warm
+        _build.reset_launches()
+        split = device_split(lambda: be.solve(op, b, prec=prec, **kw),
+                             ("fused_iter_kernel", "copy_row",
+                              "sum_partials"))
+        prof[name] = per_iter(split, _build.LAUNCHES.get("fused_iter", 0))
+    out["profile_per_iteration"] = prof
+
+    # ---- 3. recovery under payload chaos: icesheet3d at l = 4 -----------
+    chaos = ChaosConfig(**CHAOS_RECOVERY)
+    ckw = dict(l=4, tol=1e-5, maxit=400, max_restarts=120,
+               sigmas=shifts_for_operator(iop, 4, prec=iprec),
+               fused_iteration=True, unroll=16, telemetry_cap=TEL_CAP)
+
+    def chaotic(**extra):
+        return be.run(lambda ops, bb: pipelined_cg.solve(
+            chaos_ops(ops, chaos), bb, **dict(ckw, **extra)), iop, ib,
+            prec=iprec)
+
+    rg, wall_g, lz_g = run(lambda: chaotic(recurrence="stable",
+                                           governor=GovernorConfig()))
+    ru, wall_u, _ = run(lambda: chaotic())
+    dg = diagnose(rg)
+    rel_g, rel_u = true_rel(iop, ib, rg.x), true_rel(iop, ib, ru.x)
+    out["recovery_icesheet3d"] = {
+        "chaos": CHAOS_RECOVERY, "l": 4, "tol": ckw["tol"],
+        "governed": {"converged": dg["converged"], "true_rel_residual":
+                     rel_g, "iters": int(rg.iters),
+                     "restarts": int(rg.restarts),
+                     "replacements": dg["replacements"],
+                     "actions_in_ring": actions(rg.telemetry, 4),
+                     "wall_s": wall_g, "launches": lz_g},
+        "ungoverned": {"converged": bool(ru.converged),
+                       "true_rel_residual": rel_u, "iters": int(ru.iters),
+                       "restarts": int(ru.restarts), "wall_s": wall_u}}
+    if not (dg["converged"] and rel_g < ckw["tol"]
+            and lz_g.get("fused_iter_ell", 0) > 0):
+        failed.append("recovery_icesheet3d")
+    del rg, ru
+
+    # ---- 4. the depth ladder from l = 16 ---------------------------------
+    catastrophic = ChaosConfig(**CHAOS_CATASTROPHIC)
+    lkw = dict(tol=TOL, maxit=400, max_restarts=60, fused_iteration=True,
+               unroll=16)
+    err = None
+
+    def ladder():
+        try:
+            governed_solve(be, op, b, l=LADDER_L, prec=prec,
+                           ops_transform=lambda o: chaos_ops(o, catastrophic),
+                           **lkw)
+        except StagnationError as e:
+            return e
+        return None
+
+    err, wall, lz = run(ladder)
+    attempts = [] if err is None else err.diagnosis["attempts"]
+    tried = [a["l"] for a in attempts]
+    rt_launches = lz.get("fused_iter_runtime_l", 0)
+    # Device time of the runtime-depth kernel on the ladder's first rung:
+    # a profiled rung cut to 16 updates and one restart.
+    def rung():
+        return be.run(lambda ops, bb: pipelined_cg.solve(
+            chaos_ops(ops, catastrophic), bb, l=LADDER_L,
+            recurrence="stable", governor=GovernorConfig(),
+            **dict(lkw, maxit=16, max_restarts=1)), op, b, prec=prec)
+
+    rung()
+    _build.reset_launches()
+    split = device_split(rung, ("fused_iter_kernel_rt",))
+    n_rt = _build.LAUNCHES.get("fused_iter_runtime_l", 0)
+    out["ladder"] = {
+        "start_l": LADDER_L, "chaos": CHAOS_CATASTROPHIC,
+        "attempts": attempts, "depths_tried": tried,
+        "stagnation_error": None if err is None else str(err),
+        "wall_s": wall, "launches": lz,
+        "fused_iter_runtime_l_launches": rt_launches,
+        "rt_profiled_launches": n_rt,
+        "rt_device_ms_per_launch": (
+            split["device_us"]["fused_iter_kernel_rt"] * 1e-3 / n_rt
+            if n_rt else None),
+        "rt_profiled_wall_ms_per_iteration": 1e3 * split["wall_s"]
+        / max(n_rt, 1)}
+    if err is None or tried != [16, 8, 4, 2, 1] or rt_launches == 0:
+        failed.append("ladder")
+
+    # ---- 5. governed slab of SLAB_S ice-sheet right-hand sides ------------
+    rng = np.random.default_rng(BATCH_SEED)
+    B = torch.empty((SLAB_S, iop.n), dtype=torch.float64, device=dev)
+    B[0] = ib
+    B[1:] = torch.tensor(rng.standard_normal((SLAB_S - 1, iop.n)),
+                         device=dev)
+    r, wall, lz = run(lambda: be.solve_batched(
+        iop, B, prec=iprec, recurrence="stable", governor=GovernorConfig(),
+        **ice_kw))
+    rels = (torch.linalg.norm(B - iop.apply(r.x), dim=1)
+            / torch.linalg.norm(B, dim=1)).tolist()
+    g = r.governor
+    out["governed_slab_icesheet3d"] = {
+        "s": SLAB_S, "governor_shape": list(g.shape),
+        "converged": r.converged.tolist(), "true_rel_residual": rels,
+        "iters": r.iters.tolist(), "restarts": r.restarts.tolist(),
+        "replacements": g[:, GM.REPL].long().tolist(), "wall_s": wall,
+        "launches": lz}
+    if not (bool(r.converged.all()) and max(rels) < 10 * TOL
+            and list(g.shape) == [SLAB_S, GM.N_SLOTS]
+            and lz.get("fused_iter_ell_slab", 0) > 0):
+        failed.append("governed_slab_icesheet3d")
+    del r, B
+
+    # ---- 6. served with telemetry ----------------------------------------
+    kop = dataclasses.replace(iop, use_kernel=True)
+    svc = SolverService(be, s=SLAB_S, method="plcg", l=2, chunk_iters=16,
+                        maxit=ice_kw["maxit"], prec="jacobi",
+                        clock=VirtualClock(), telemetry_cap=256)
+    svc.register_operator("ice", kop)
+    bs = [rng.standard_normal(iop.n) for _ in range(SERVE_REQUESTS)]
+
+    def serve():
+        ids = [svc.submit("ice", bb, tol=TOL) for bb in bs]
+        res = svc.drain()
+        return [res[i] for i in ids]
+
+    served, wall, lz = run(serve)
+    decoded, srels = [], []
+    for rr, bb in zip(served, bs):
+        ring = rr.telemetry
+        ok = ring is not None and ring.shape == (256, 14)
+        if ok:
+            c = TelemetrySlab(cap=256, l=2).unpack(ring)
+            ok = int(c["upd"].max()) == rr.iters
+        decoded.append(ok)
+        bt = torch.as_tensor(bb, device=dev)
+        srels.append(true_rel(iop, bt, torch.as_tensor(rr.x, device=dev)))
+    track = telemetry_track(served[0].telemetry, l=2).to_json()
+    out["served_with_telemetry"] = {
+        "requests": SERVE_REQUESTS, "rings_decode": decoded,
+        "converged": [rr.converged for rr in served],
+        "iters": [rr.iters for rr in served],
+        "true_rel_residual_max": max(srels), "wall_s": wall,
+        "telemetry_track_json_bytes": len(track),
+        "telemetry_track_events": len(json.loads(track)["traceEvents"]),
+        "launches": lz}
+    if not (all(decoded) and all(rr.converged for rr in served)
+            and max(srels) < 10 * TOL and lz.get("ell_spmv_slab", 0) > 0):
+        failed.append("served_with_telemetry")
+    del svc, served
+
+    out["seconds"] = time.perf_counter() - t_phase
+    emit(out)
+    if failed:
+        raise AssertionError(f"stability failed: {failed}")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -2426,6 +2778,10 @@ def main() -> int:
         timings[name] = slab_timings[f"{name}_s{SLAB_S}"]
         err[name] = slab_err[f"{name}_s{SLAB_S}"]
 
+    # ---- 17. the telemetry ring, the governor, chaos, the ladder ---------
+    stab_launches = stability_phase(dev, gpu, op, prec, b, solve_kw, main,
+                                    main_digest, iop, iprec, ib, ice_kw)
+
     # ---- contract lines --------------------------------------------------
     src_dir = "src/repro_torch/kernels/csrc/"
     kernels = []
@@ -2475,7 +2831,8 @@ def main() -> int:
             "device_ms": t.get("device_ms"),
             "library_device_ms": t.get("library_device_ms"),
             "launches_baselines": base_launches.get(name, 0),
-            "launches_ranks": wire_launches.get(name, 0)})
+            "launches_ranks": wire_launches.get(name, 0),
+            "launches_stability": stab_launches.get(name, 0)})
     for k in kernels:
         if k["launches"] == 0:
             raise AssertionError(f"{k['name']} was never launched on its path")

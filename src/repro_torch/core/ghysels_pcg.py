@@ -216,7 +216,7 @@ def solve(ops: SolverOps, b, x0=None, tol: float = 1e-6, maxit: int = 1000,
     if checkpoint is not None and getattr(checkpoint, "armed", True):
         raise NotImplementedError(
             "checkpointed solves are not ported yet (ROADMAP.md, queue 1 "
-            "item 6)")
+            "item 6b)")
     b = as_rhs(b, device)
     prog = build(ops, b, tol=tol, maxit=maxit, replace_every=replace_every)
     st = prog.init(torch.zeros_like(b) if x0 is None

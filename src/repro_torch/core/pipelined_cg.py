@@ -29,8 +29,24 @@ read them, and a restart rebuilds them from x.
 
 Breakdown handling, the steepest-descent stagnation guard of
 ``restart_cycle`` and residual replacement (``replace_every``) follow the
-JAX package line by line.  ``governor``, ``telemetry_cap > 0`` and
-``checkpoint`` are not ported yet and raise.
+JAX package line by line, and so do the telemetry ring
+(``telemetry_cap > 0``) and the stability governor (``governor``):
+
+* the ring is a (cap + 1, K) tensor on the device (``tel_layout`` rows);
+  each iteration writes one row, built by one concatenation of scalars
+  the iteration already holds, at the device-side slot ``tot % cap``; a
+  predicated iteration writes the spare last row instead, which
+  ``finish`` drops.  No reduction and no host synchronisation is added,
+  and the arithmetic is untouched: an instrumented solve is bitwise the
+  plain one.
+* the governor's (N_SLOTS,) vector is rebuilt each late iteration from
+  the arrived dot block and the scalars of ``scal`` in a few whole-tensor
+  operations (``stability.model`` holds its slots and ``gap_step``); a
+  due action rides on ``needs_interrupt``, which the host loop already
+  reads with ``cond`` at its check, and the restart consumes it.
+  ``governor=None`` computes none of it.
+
+``checkpoint`` is not ported yet and raises.
 
 The slab form (``build`` with an (s, N) ``b``, driven by
 ``core.batched``): each column keeps its own host cycle index, the
@@ -56,7 +72,7 @@ from repro_torch.core.types import (SolveResult, SolverOps, dot1, host_loop,
                                     host_tensor)
 from repro_torch.device import as_rhs, as_tensor
 from repro_torch.kernels.fused_iter import (SlabLayout, host_idx, idx_layout,
-                                            scal_layout)
+                                            scal_layout, tel_layout)
 from repro_torch.kernels.ref import (fused_iter_unfused,
                                      fused_iter_unfused_slab)
 
@@ -89,6 +105,11 @@ class _State(NamedTuple):
     since_rr: torch.Tensor   # solution updates since the last (re)start
     t: int = 0               # iterations this program ran (host): the clock
                              # the windows' rings turn with
+    tel: torch.Tensor | None = None   # (cap + 1, K) telemetry ring (the
+                             # last row takes predicated writes); None
+                             # when uninstrumented
+    gov: torch.Tensor | None = None   # (N_SLOTS,) governor vector; None
+                             # when ungoverned
 
 
 class PlcgProgram(NamedTuple):
@@ -136,17 +157,19 @@ def build(
     ``b`` is one right-hand side (N,) or a slab of s of them (s, N), one a
     row; the slab program runs the s columns in lock step (one dot-block
     start and, fused, one superkernel launch an iteration), each column
-    with the arithmetic of its own sequential program."""
+    with the arithmetic of its own sequential program, its own telemetry
+    ring (s, cap, K) and its own governor vector (s, N_SLOTS).
+
+    ``telemetry_cap > 0`` records the per-iteration telemetry ring
+    (``SolveResult.telemetry``); ``governor`` (a
+    ``stability.GovernorConfig``) arms the stability governor
+    (``SolveResult.governor``): gap- and patience-arm residual
+    replacements through the interrupt machinery, convergence certified
+    by the true residual, the terminal STAGNATED flag."""
     if l < 1:
         raise ValueError("pipeline depth l must be >= 1")
-    if telemetry_cap:
-        raise NotImplementedError(
-            "telemetry_cap > 0 is not ported yet (ROADMAP.md, queue 1 "
-            "item 6)")
-    if governor is not None:
-        raise NotImplementedError(
-            "the stability governor is not ported yet (ROADMAP.md, queue 1 "
-            "item 6)")
+    if telemetry_cap < 0:
+        raise ValueError("telemetry_cap must be >= 0")
     if not (replace_every == 0 or replace_every > l):
         raise ValueError(
             "residual replacement must be rarer than the pipeline refill")
@@ -173,6 +196,15 @@ def build(
     layout = SlabLayout(l=l, RB=RB, recurrence=recurrence)
     NV = layout.nv
     IX = idx_layout(l)
+    IS = scal_layout(l)
+    TK = tel_layout(l)["size"]
+    cap = int(telemetry_cap)
+    # The arrived dot block is read by the ring and the governor only.
+    need_dots = bool(cap) or governor is not None
+    if governor is not None:
+        from repro_torch.stability import model as GM
+        g_eps = governor.resolved_eps(dtype)
+        g_patience = governor.resolved_patience(l)
 
     fiter = None
     if fused_iteration:
@@ -190,6 +222,9 @@ def build(
         return torch.ones((), dtype=dtype, device=dev)
 
     ZERO, ONE = zero(), one()   # read-only constants, never written
+    MINUS_ONE, TWO, THREE = -one(), 2 * one(), 3 * one()
+    NAN = torch.full((), float("nan"), dtype=dtype, device=dev)
+    DOTS0 = torch.zeros((2 * l + 1,), dtype=dtype, device=dev)
 
     # Device copies of host-built index vectors and masks, one per distinct
     # value (there are few: the rows are periodic in i; a long-lived slab
@@ -299,7 +334,7 @@ def build(
         every value read from them below is either consumed before the
         element is rewritten or is the post-write value the functional
         reference reads too.  Returns (scal, breakdown or None, zet_new,
-        eta_prev', zet_prev')."""
+        eta_prev', zet_prev', the arrived dot block or None)."""
         im = i - l                     # index of the Hessenberg column built
         ge_l = i >= l
         w_im, w_im1 = (im + o) % W, (im - 1 + o) % W
@@ -309,6 +344,9 @@ def build(
             w_col = (col + o) % W
             arrived = ops.wait(ring(D, (im + o) % l),
                                advanced=l - 1).to(dtype)
+            if need_dots:
+                # A view of the D slot this iteration's start overwrites.
+                arrived = arrived.clone()
             for t in range(2 * l + 1):         # rows im-2l+1 .. im+1
                 row = im - 2 * l + 1 + t
                 if row >= 0:
@@ -362,7 +400,7 @@ def build(
             dlt[E + (w_im,)] = dlt_new
             dlt_safe = torch.where(dlt_new == 0, ONE, dlt_new)
         else:
-            gam_new, dlt_safe, breakdown = ZERO, ONE, None
+            gam_new, dlt_safe, breakdown, arrived = ZERO, ONE, None, None
 
         d2 = dlt[E + (w_im1,)] if im >= 1 else ZERO   # delta_{i-l-1}
 
@@ -393,16 +431,18 @@ def build(
             eta_new if do_upd else eta_prev)
         zet_next = norm0_cycle if is_first else (
             zet_new if do_upd else zet_prev)
-        return scal, breakdown, zet_new, eta_next, zet_next
+        return scal, breakdown, zet_new, eta_next, zet_next, arrived
 
     def scalar_groups(c: _Cycle, t: int):
         """The scalar phase of every column: one pass per group of columns
         that share the host decisions of their cycle index (a slab past its
         pipeline fill is one group and runs on the state's own windows).
-        Returns (scal, breakdown, zet_new, eta_prev', zet_prev', do_upd,
-        ge_l), the last two host bools or, over several groups, (s,)
-        device masks; breakdown is None where no column is past the fill's
-        first l iterations."""
+        Returns (scal, breakdown, zet_new, eta_prev', zet_prev', arrived,
+        do_upd, ge_l), the last two host bools or, over several groups,
+        (s,) device masks; breakdown and arrived are None where no column
+        is past the fill's first l iterations (over several groups,
+        arrived is assembled only when the ring or the governor reads
+        it)."""
         if not slab:
             out = scalar_phase(c.G, c.D, c.gam, c.dlt, c.eta_prev,
                                c.zet_prev, c.norm0_cycle, c.i, t - c.i)
@@ -421,38 +461,148 @@ def build(
         bd = torch.zeros((s_,), dtype=torch.bool, device=dev)
         zet = torch.zeros((s_,), dtype=dtype, device=dev)
         eta_next, zet_next = c.eta_prev.clone(), c.zet_prev.clone()
+        arr = (torch.zeros((s_, 2 * l + 1), dtype=dtype, device=dev)
+               if need_dots else None)
         for cols in groups.values():
             gi = dev_tensor("cols", cols, torch.long)
             i = c.i[cols[0]]
             win = [X.index_select(0, gi) for X in
                    (c.G, c.D, c.gam, c.dlt, c.eta_prev, c.zet_prev,
                     c.norm0_cycle)]
-            sc_g, bd_g, zet_g, eta_g, zp_g = scalar_phase(*win, i, t - i)
+            sc_g, bd_g, zet_g, eta_g, zp_g, arr_g = scalar_phase(*win, i,
+                                                                 t - i)
             c.G.index_copy_(0, gi, win[0])
             c.gam.index_copy_(0, gi, win[2])
             c.dlt.index_copy_(0, gi, win[3])
             scal.index_copy_(0, gi, sc_g)
             if bd_g is not None:
                 bd.index_copy_(0, gi, bd_g)
+                if arr is not None:
+                    arr.index_copy_(0, gi, arr_g)
             zet.index_copy_(0, gi, zet_g.expand(len(cols)))
             eta_next.index_copy_(0, gi, eta_g.expand(len(cols)))
             zet_next.index_copy_(0, gi, zp_g.expand(len(cols)))
         do_upd = dev_tensor("mask", [i >= l + 1 for i in c.i], torch.bool)
         ge_l = dev_tensor("mask", [i >= l for i in c.i], torch.bool)
-        return scal, bd, zet, eta_next, zet_next, do_upd, ge_l
+        return scal, bd, zet, eta_next, zet_next, arr, do_upd, ge_l
+
+    # ------------------------------------------- telemetry and governor ---
+    SPARE = host_tensor(cap, torch.int64, dev) if cap else None
+
+    def tel_write(tel, tot, upd, cols: list, dots, active=None):
+        """Store one ``tel_layout`` row in the ring at slot ``tot % cap``
+        (the spare last row where ``active`` is False): the counters
+        ``tot`` and ``upd``, ``cols`` the other seven scalar columns in
+        layout order (0-d or one a column, in the solve's dtype), ``dots``
+        the 2l+1 dot-block entries.  One stack and one concatenation build
+        the row, one scatter stores it: few launches, and few calls, since
+        the host sets the pace."""
+        shape = tot.shape
+        if shape:           # a slab: 0-d constants go to every column
+            cols = [v if v.shape == shape else v.expand(shape) for v in cols]
+            dots = dots.expand(shape + (2 * l + 1,))
+        row = torch.cat([torch.stack([tot.to(dtype), upd.to(dtype), *cols],
+                                     -1), dots], -1)
+        slot = tot % cap
+        if active is not None:
+            slot = torch.where(active, slot, SPARE)
+        tel.scatter_(-2, slot.view(shape + (1, 1)).expand(shape + (1, TK)),
+                     row.unsqueeze(-2))
+        return tel
+
+    def gov_iteration(gov, scal, arrived, ge_l, ok, rel, upd, active):
+        """The governor's detection arms for one iteration (the JAX
+        package's pipelined_cg.py:557-605): the new governor vector, the
+        gap and the action code.  ``ok`` None: no solution update this
+        iteration, so only the gap moves.  Whole-tensor operations over
+        the columns, each launch counted: the host sets the pace."""
+        g = gov.unbind(-1).__getitem__      # the slots, as views
+        # |gam_new|, |d2|, |dlt_safe| sit side by side in scal.
+        inc = GM.gap_increment(
+            torch.abs(scal.narrow(-1, IS["gam_new"], 3)),
+            torch.sqrt(torch.abs(arrived.select(-1, 2 * l))), g_eps,
+            governor.kappa)
+        gap = g(GM.GAP) + torch.maximum(inc, g(GM.RATE))
+        if ge_l is not True:
+            gap = torch.where(ge_l, gap, g(GM.GAP))
+        if ok is None:
+            new = torch.cat([gap.unsqueeze(-1),
+                             gov.narrow(-1, GM.GAP + 1, GM.N_SLOTS - 1)], -1)
+            code = ZERO
+        else:
+            # rel is NaN where not ok, so each comparison below is False
+            # there, as the reference's ok & (...) is.
+            rel = torch.where(ok, rel, NAN)
+            upd_f = upd.to(dtype)
+            improved = rel < governor.improve_ratio * g(GM.BEST)
+            best = torch.where(improved, rel, g(GM.BEST))
+            best_upd = torch.where(improved, upd_f, g(GM.BEST_UPD))
+            # The gap arm, and the recursion claiming convergence: both
+            # schedule a replacement whose true residual decides.
+            gap_due = (governor.safety * gap >= rel) | (rel < tol)
+            pat_due = (rel >= tol) & (upd_f - best_upd >= g_patience)
+            code = torch.where(gap_due, ONE,
+                               torch.where(pat_due, TWO, ZERO))
+            # An active iteration has nothing due (a due action stops the
+            # loop at needs_interrupt), so its due is the code.
+            due = code if active is not None else torch.where(
+                g(GM.DUE) > 0, g(GM.DUE), code)
+            new = torch.cat([torch.stack([gap, best, best_upd, due], -1),
+                             gov.narrow(-1, GM.DUE + 1,
+                                        GM.N_SLOTS - GM.DUE - 1)], -1)
+        if active is not None:
+            new = torch.where(active.unsqueeze(-1), new, gov)
+        return new, gap, code
+
+    def gov_restart(st: _State, cyc: _Cycle):
+        """The governor's accounting at a restart (the JAX package's
+        pipelined_cg.py:637-693): consume the pending action, judge it
+        against the TRUE residual of the re-init, re-seed the gap and
+        measure the drift rate of the cycle that ended.  Returns the new
+        vector and the action code."""
+        gov = st.gov
+        g = gov.unbind(-1).__getitem__      # the slots, as views
+        was_due = g(GM.DUE)
+        fired = was_due > 0
+        rel_now = cyc.norm0_cycle / st.norm0      # TRUE relative residual
+        rec_rel = torch.abs(st.cyc.zet_prev) / st.norm0
+        measured = torch.clamp(rel_now - rec_rel, min=0.0)
+        i_c = st.cyc.i
+        i_f = (float(max(i_c, 1)) if isinstance(i_c, int) else
+               dev_tensor("i_f", [max(i, 1) for i in i_c], dtype))
+        rate_new = measured / i_f
+        fruitful = rel_now < governor.improve_ratio * g(GM.LAST_REL)
+        fruitless = torch.where(
+            fired, torch.where(fruitful, ZERO, g(GM.FRUITLESS) + 1),
+            g(GM.FRUITLESS))
+        stag = torch.where(fruitless >= governor.demote_after, ONE,
+                           g(GM.STAGNATED))
+        action = torch.where(stag > g(GM.STAGNATED), THREE, was_due)
+        new = torch.stack([
+            torch.full_like(rel_now, g_eps),               # GAP
+            torch.minimum(g(GM.BEST), rel_now),            # BEST
+            st.upd.to(dtype),                              # BEST_UPD
+            torch.zeros_like(rel_now),                     # DUE
+            g(GM.REPL) + fired.to(dtype),                  # REPL
+            fruitless, stag,                               # FRUITLESS, STAG
+            torch.where(fired, rel_now, g(GM.LAST_REL)),   # LAST_REL
+            rate_new], -1)                                 # RATE
+        return new, action
 
     # -------------------------------------------------------- iteration ---
     def iteration(st: _State, active: torch.Tensor | None = None) -> _State:
         """One p(l)-CG iteration.  ``active`` (a device bool, (s,) for a
-        slab) predicates the observable state; None means unconditionally
+        slab) predicates the observable state, and is False wherever
+        ``needs_interrupt`` holds (the host loop and the slab driver pass
+        ``cond & ~needs_interrupt``); None means unconditionally
         active."""
         c = st.cyc
         t = st.t
         G, gam, dlt, D = c.G, c.gam, c.dlt, c.D
 
         # ===== scalar phase: MPI_Wait arrival + K2 + K3 + K6 ==============
-        scal, breakdown, zet_new, eta_prev, zet_prev, do_upd, ge_l = \
-            scalar_groups(c, t)
+        scal, breakdown, zet_new, eta_prev, zet_prev, arrived, do_upd, \
+            ge_l = scalar_groups(c, t)
 
         # ===== vector phase ===============================================
         if slab:
@@ -505,6 +655,7 @@ def build(
         step = 1 if active is None else active.to(st.tot.dtype)
         upd, converged, hist, since_rr = st.upd, st.converged, st.hist, \
             st.since_rr
+        rnorm = ok = None
         if do_upd is not False:
             if do_upd is True:
                 inc = step
@@ -527,7 +678,9 @@ def build(
                 slot = upd.clamp(0, H - 1).view(1)
                 hist.scatter_(0, slot, torch.where(ok, rnorm.view(1),
                                                    hist.gather(0, slot)))
-            converged = st.converged | (ok & (rnorm / st.norm0 < tol))
+            if governor is None:
+                converged = st.converged | (ok & (rnorm / st.norm0 < tol))
+            # Governed: only a replacement's true residual converges.
         if ge_l is False:
             bd = st.breakdown & ~active if active is not None else \
                 torch.zeros_like(st.breakdown)
@@ -536,10 +689,30 @@ def build(
                 breakdown = breakdown & ge_l
             bd = breakdown if active is None else \
                 torch.where(active, breakdown, st.breakdown)
+
+        # ---- stability governor: detection arms (no extra reduction) ----
+        gov, gap, code = st.gov, ZERO, ZERO
+        if governor is not None and ge_l is False:
+            gap = gov.select(-1, GM.GAP)        # the pipeline fill: unchanged
+        elif governor is not None:
+            gov, gap, code = gov_iteration(
+                st.gov, scal, arrived, ge_l, ok,
+                None if ok is None else rnorm / st.norm0, upd, active)
+        tel = st.tel
+        if cap:
+            i_cols = c.i if slab else (c.i,)
+            age = dev_tensor("age", [min(i + 1, l) for i in i_cols],
+                             dtype).view(st.tot.shape)
+            rn = MINUS_ONE if ok is None else torch.where(ok, rnorm,
+                                                          MINUS_ONE)
+            bd_f = ZERO if breakdown is None else breakdown.to(dtype)
+            tel = tel_write(
+                tel, st.tot, upd, [rn, age, bd_f, ZERO, ZERO, gap, code],
+                DOTS0 if arrived is None else arrived, active)
         return _State(cyc=cyc, tot=st.tot + step, upd=upd,
                       restarts=st.restarts, converged=converged,
                       breakdown=bd, hist=hist, norm0=st.norm0,
-                      since_rr=since_rr, t=t + 1)
+                      since_rr=since_rr, t=t + 1, tel=tel, gov=gov)
 
     def do_restart(st: _State, b_=None) -> _State:
         """Restart (breakdown or due replacement) at the current clock;
@@ -549,23 +722,44 @@ def build(
         cyc = restart_cycle(st.cyc.S[..., layout.x_row, :],
                             st.breakdown & (st.since_rr == 0),
                             b if b_ is None else b_, st.t)
-        # A breakdown at a converged iterate is a "lucky breakdown".
+        # A breakdown at a converged iterate is a "lucky breakdown"; a
+        # governed replacement certifies convergence the same way.
         lucky = cyc.norm0_cycle / st.norm0 < tol
+        gov, gap, action = st.gov, ZERO, ZERO
+        if governor is not None:
+            gov, action = gov_restart(st, cyc)
+            gap = gov.select(-1, GM.GAP)
+        tel = st.tel
+        if cap:
+            bd_f = st.breakdown.to(dtype)
+            tel = tel_write(
+                tel, st.tot, st.upd,
+                [cyc.norm0_cycle,                   # TRUE residual M-norm
+                 ZERO, bd_f, ONE, 1.0 - bd_f, gap, action], DOTS0)
         return _State(
             cyc=cyc, tot=st.tot + 1, upd=st.upd, restarts=st.restarts + 1,
             converged=st.converged | lucky,
             breakdown=torch.zeros_like(st.breakdown), hist=st.hist,
-            norm0=st.norm0, since_rr=torch.zeros_like(st.since_rr), t=st.t)
+            norm0=st.norm0, since_rr=torch.zeros_like(st.since_rr), t=st.t,
+            tel=tel, gov=gov)
 
     def needs_interrupt(st: _State) -> torch.Tensor:
         due = st.breakdown
         if replace_every > 0:
             due = due | (st.since_rr >= replace_every)
+        if governor is not None:
+            # A governor-scheduled replacement takes the same interrupt.
+            due = due | (st.gov.select(-1, GM.DUE) > 0)
         return due
 
     def cond(st: _State) -> torch.Tensor:
-        return ((~st.converged) & (st.tot < tot_max) & (st.upd < maxit)
+        keep = ((~st.converged) & (st.tot < tot_max) & (st.upd < maxit)
                 & (st.restarts <= max_restarts))
+        if governor is not None:
+            # Terminal stagnation stops the loop; the host ladder
+            # (stability.governor) demotes l or raises.
+            keep = keep & ~(st.gov.select(-1, GM.STAGNATED) > 0)
+        return keep
 
     def init(x0: torch.Tensor, t0: int = 0, b_=None) -> _State:
         """The state at x0, its first cycle's iteration 0 at clock ``t0``;
@@ -580,13 +774,19 @@ def build(
             cyc=cyc0, tot=izero, upd=izero.clone(), restarts=izero.clone(),
             converged=norm0 == 0.0,
             breakdown=torch.zeros(norm0.shape, dtype=torch.bool, device=dev),
-            hist=hist0, norm0=norm0, since_rr=izero.clone(), t=t0)
+            hist=hist0, norm0=norm0, since_rr=izero.clone(), t=t0,
+            tel=(torch.full(norm0.shape + (cap + 1, TK), -1.0, dtype=dtype,
+                            device=dev) if cap else None),
+            gov=(GM.gov_init(dtype, dev, norm0.shape)
+                 if governor is not None else None))
 
     def finish(final: _State, host_syncs: int = 0) -> SolveResult:
         return SolveResult(
             x=final.cyc.S[..., layout.x_row, :].clone(), iters=final.upd,
             restarts=final.restarts, converged=final.converged,
             res_history=final.hist, norm0=final.norm0,
+            telemetry=(final.tel[..., :cap, :].clone() if cap else None),
+            governor=final.gov,
             host_syncs=host_syncs)
 
     return PlcgProgram(init=init, iteration=iteration, interrupt=do_restart,
@@ -616,13 +816,14 @@ def solve(
 
     ``b`` as a tensor keeps its device; as an array it goes to ``device``
     (default ``cuda``).  A floating ``b`` keeps its dtype, which is the
-    solve's (the fused superkernel takes fp64 only).  ``unroll`` is the number of iterations between
-    host checks of the loop condition (one host synchronisation each);
-    the result is bitwise the same for every ``unroll``."""
+    solve's (the fused superkernel takes fp64 only).  ``unroll`` is the
+    number of iterations between host checks of the loop condition (one
+    host synchronisation each); the result is bitwise the same for every
+    ``unroll``.  ``telemetry_cap`` and ``governor``: see :func:`build`."""
     if checkpoint is not None and getattr(checkpoint, "armed", True):
         raise NotImplementedError(
             "checkpointed solves are not ported yet (ROADMAP.md, queue 1 "
-            "item 6)")
+            "item 6b)")
     b = as_rhs(b, device)
     prog = build(ops, b, l, tol=tol, maxit=maxit, sigmas=sigmas,
                  max_restarts=max_restarts, replace_every=replace_every,

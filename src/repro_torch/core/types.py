@@ -41,11 +41,59 @@ class SolveResult(NamedTuple):
     converged: torch.Tensor    # bool
     res_history: torch.Tensor  # recursive residual M-norms, -1 padded
     norm0: torch.Tensor        # initial residual M-norm
+    # The (cap, K) telemetry ring (``TelemetrySlab`` decodes it), or None
+    # when the solve was not instrumented (telemetry_cap=0).
     telemetry: torch.Tensor | None = None
+    # The final (N_SLOTS,) stability-governor vector
+    # (``repro_torch.stability.model``), or None when ungoverned.
     governor: torch.Tensor | None = None
     # Port only: how many times the host loop read device state to decide
     # whether to go on (the solve's host synchronisations).
     host_syncs: int = 0
+
+
+@dataclasses.dataclass(frozen=True)
+class TelemetrySlab:
+    """Descriptor of the per-iteration telemetry ring.
+
+    An instrumented p(l)-CG solve carries a ``(cap, K)`` ring on the
+    device: one row an iteration of scalars the iteration already computed
+    (residual norm, the arrived 2l+1-entry dot block, restart and
+    replacement flags, handle age, the governor's gap and action), in the
+    layout of ``kernels.fused_iter.tel_layout``.  Writing it adds no
+    reduction and no host synchronisation; it is read only with the
+    result.  Rows wrap: row ``tot % cap`` belongs to global iteration
+    ``tot`` (the "iter" column tells which after a wrap)."""
+
+    cap: int
+    l: int
+
+    @property
+    def k(self) -> int:
+        from repro_torch.kernels.fused_iter import tel_layout
+
+        return tel_layout(self.l)["size"]
+
+    @property
+    def shape(self) -> tuple[int, int]:
+        return (self.cap, self.k)
+
+    def bytes_per_iter(self, dtype=torch.float64) -> int:
+        """Device bytes the ring write adds an iteration: one K-row."""
+        return self.k * torch.empty((), dtype=dtype).element_size()
+
+    def unpack(self, tel) -> dict:
+        """Decode a ring (..., cap, K), a tensor or an array, into named
+        columns: (..., cap) for the scalar columns and ``dots``
+        (..., cap, 2l+1).  Rows never written hold -1 in every column."""
+        from repro_torch.kernels.fused_iter import tel_layout
+
+        tl = tel_layout(self.l)
+        out = {name: tel[..., :, tl[name]]
+               for name in ("iter", "upd", "rnorm", "age", "breakdown",
+                            "restart", "replacement", "gap", "action")}
+        out["dots"] = tel[..., :, tl["dots"]:tl["size"]]
+        return out
 
 
 @dataclasses.dataclass(frozen=True)

@@ -140,8 +140,10 @@ def scal_layout(l: int) -> dict[str, int]:
 
 
 # Telemetry-row layout (solver dtype).  One row of the (cap, K) telemetry
-# ring per iteration; the port does not record telemetry yet, the layout
-# is kept so both packages share one positional contract.
+# ring per iteration, every entry a scalar the iteration already computed:
+# written by ``core.pipelined_cg`` (``telemetry_cap > 0``), decoded by
+# ``core.types.TelemetrySlab`` and ``obs.timeline``; the same positional
+# contract as ``idx_layout``/``scal_layout``.
 def tel_layout(l: int) -> dict[str, int]:
     return {
         "iter": 0,         # global iteration counter (tot) of this row
@@ -153,7 +155,9 @@ def tel_layout(l: int) -> dict[str, int]:
         "replacement": 6,  # 1.0 when the restart was a due residual
                            # replacement (not a breakdown)
         "gap": 7,          # governor's attainable-accuracy gap estimate
-        "action": 8,       # governor action on this row
+        "action": 8,       # governor action on this row: 0 none,
+                           # 1 gap-arm replacement, 2 patience-arm
+                           # replacement, 3 stagnation declared
         "dots": 9,         # 2l+1 entries: the arrived dot block consumed
                            # this iteration (zeros during pipeline fill)
         "size": 9 + (2 * l + 1),

@@ -12,9 +12,11 @@ same snapshot.  :class:`Histogram` is a bounded reservoir whose
 ``quantile`` is the service's nearest-rank percentile.
 
 Each ``SolverService`` creates its own registry, so two services never
-share counters.  The JAX package's gauges and text exporters, and the
-rest of its ``obs`` (timelines, telemetry), are not ported yet
-(ROADMAP.md, queue 1 item 6).
+share counters.  The JAX package's gauges and text exporters are not
+ported (nothing in the port reads them); its timelines are in
+``repro_torch.obs.timeline``, except the two built on XLA's HLO
+(``hlo_schedule_track``, ``solve_timeline``), which wait for a profiler
+trace (ROADMAP.md, queue 1 item 7).
 """
 
 from __future__ import annotations

@@ -86,6 +86,12 @@ class LocalBackend(ReductionBackend):
         return batched_mod.slab_program(ops, s, op.n, method,
                                         dict(solver_kwargs), chunk_iters)
 
+    def run(self, fn, op, b, prec=None):
+        """``fn(ops, b)`` on this backend's ``SolverOps`` (b to its
+        device): the hook that lets a caller rewrite the ops before a
+        solve, as ``stability.governed_solve``'s ``ops_transform`` does."""
+        return fn(self.make_ops(op, prec), as_rhs(b, self.device))
+
     def describe(self) -> str:
         if self.reduction_cfg is not None:
             return (f"local (single device, ladder oracle over "

@@ -26,8 +26,9 @@ staged ring ladder of point-to-point hops (``reduction="staged"``), which
 is bitwise equal to its one-process reference
 (``parallel.distributed.rank_oracle_ops``; unfused, to
 ``LocalBackend(reduction="staged", virtual_shards=P)``).  Batched solves
-and slab programs over ranks (queue 1 item 5b) and checkpointed solves
-(item 6) are not ported (they raise).
+and slab programs over ranks (queue 1 item 5b), and checkpointed,
+instrumented (``telemetry_cap > 0``) or governed solves over ranks (item
+6b) are not ported: they raise.
 """
 
 from __future__ import annotations
@@ -122,7 +123,12 @@ class MultiprocessBackend(ReductionBackend):
         if ckpt is not None and getattr(ckpt, "armed", True):
             raise NotImplementedError(
                 "checkpointed solves over ranks are not ported yet "
-                "(ROADMAP.md, queue 1 item 6)")
+                "(ROADMAP.md, queue 1 item 6b)")
+        if solver_kwargs.get("telemetry_cap", 0) or \
+                solver_kwargs.get("governor") is not None:
+            raise NotImplementedError(
+                "the telemetry ring and the stability governor over ranks "
+                "are not ported yet (ROADMAP.md, queue 1 item 6b)")
         return distributed_solve(self.wire, op, as_rhs(b, self.device),
                                  method=method, prec=prec,
                                  reduction=self.reduction_cfg,

@@ -104,6 +104,7 @@ class RetiredColumn(NamedTuple):
     iters: int
     converged: bool
     res_history: np.ndarray
+    telemetry: np.ndarray | None = None     # the column's ring, if any
 
 
 class SlabWorker:
@@ -206,13 +207,16 @@ class SlabWorker:
         iters = res.iters.cpu().numpy()
         conv = res.converged.cpu().numpy()
         hist = res.res_history.cpu().numpy()
+        tel = (None if res.telemetry is None
+               else res.telemetry.cpu().numpy())
         out = []
         for j in done:
             req = self.slots[j]
             h = hist[j]
             out.append(RetiredColumn(
                 worker=self.wid, req=req, x=x[j], iters=int(iters[j]),
-                converged=bool(conv[j]), res_history=h[h >= 0]))
+                converged=bool(conv[j]), res_history=h[h >= 0],
+                telemetry=None if tel is None else tel[j]))
             self.slots[j] = None
         return out
 

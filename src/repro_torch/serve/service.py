@@ -80,6 +80,9 @@ class RequestResult:
     deadline_s: float | None = None
     shed: bool = False
     slo_met: bool = True
+    # The request's (cap, K) telemetry ring (``core.types.TelemetrySlab``
+    # decodes it) when the service runs with ``telemetry_cap > 0``.
+    telemetry: np.ndarray | None = None
 
 
 @dataclasses.dataclass
@@ -132,15 +135,21 @@ class SolverService:
     fault_injector: ``fault_injector(tick, worker)`` runs before each
                   busy worker's chunk; raising ``WorkerFault`` simulates
                   a backing process's death (the recovery drill).
+    telemetry_cap: rows of the on-device telemetry ring per slab column
+                  (plcg only; ``ConfigError`` otherwise).  0 (default)
+                  leaves the ring out; > 0 gives each column its own
+                  (cap, K) ring, no extra reduction and no extra host
+                  synchronisation, bitwise invisible to the arithmetic,
+                  and each retired result carries its request's ring.
 
     Idle workers always steal queued requests from same-key siblings
     (deterministic; logged).  Each service reports through a
     :class:`~repro_torch.obs.metrics.MetricsRegistry` and a
     :class:`SetupCache` of its own; the stat attributes (``retired``,
     ``rejected``, ``shed``, ``slo_met``, ``_latencies``) are read-only
-    views onto the registry.  The JAX service's ``telemetry_cap``,
-    ``replace_every`` and shared registry and cache are not ported:
-    nothing in the port sets them yet.
+    views onto the registry.  The JAX service's ``replace_every`` and
+    shared registry and cache are not ported: nothing in the port sets
+    them yet.
     """
 
     def __init__(self, backend, s: int = 8, method: str = "plcg",
@@ -151,7 +160,7 @@ class SolverService:
                  max_replicas: int = 1, replicate_watermark: float = 1.0,
                  continuous: bool = True,
                  retry: RetryPolicy | None = None,
-                 fault_injector=None):
+                 fault_injector=None, telemetry_cap: int = 0):
         self.backend = backend
         self.s = int(s)
         self.method = method
@@ -160,6 +169,10 @@ class SolverService:
         self.maxit = int(maxit)
         self.prec_kind = prec
         self.block_size = block_size
+        self.telemetry_cap = int(telemetry_cap)
+        if self.telemetry_cap and method != "plcg":
+            raise ConfigError("telemetry_cap needs method='plcg' "
+                              f"(got {method!r})")
         self.registry = MetricsRegistry()
         self.cache = SetupCache(registry=self.registry)
         self.clock = SystemClock() if clock is None else clock
@@ -233,6 +246,8 @@ class SolverService:
         if self.method == "plcg":
             kw.update(l=self.l,
                       sigmas=self.cache.sigmas(op, self.l, prec=prec))
+            if self.telemetry_cap:
+                kw.update(telemetry_cap=self.telemetry_cap)
         self._operators[key] = OperatorEntry(op=op, prec=prec,
                                              solver_kwargs=kw)
 
@@ -309,7 +324,7 @@ class SolverService:
 
     def _record(self, req: SolveRequest, *, worker: int, x, iters: int,
                 converged: bool, res_history, shed: bool,
-                now: float) -> RequestResult:
+                now: float, telemetry=None) -> RequestResult:
         latency = now - req.submitted_at
         met = (not shed and converged
                and (req.deadline_s is None or latency <= req.deadline_s))
@@ -317,7 +332,7 @@ class SolverService:
             req_id=req.req_id, op_key=req.op_key, x=x, iters=iters,
             converged=converged, res_history=res_history,
             latency_s=latency, worker=worker, deadline_s=req.deadline_s,
-            shed=shed, slo_met=met)
+            shed=shed, slo_met=met, telemetry=telemetry)
         self.results[req.req_id] = rr
         if shed:
             self._c_shed.inc()
@@ -369,7 +384,7 @@ class SolverService:
             out.append(self._record(
                 rc.req, worker=rc.worker, x=rc.x, iters=rc.iters,
                 converged=rc.converged, res_history=rc.res_history,
-                shed=False, now=now))
+                shed=False, now=now, telemetry=rc.telemetry))
         for req in report.shed:
             if self._maybe_requeue(req, now):
                 continue

@@ -174,9 +174,10 @@ def test_local_backend_and_refusals():
         (lambda: be.solve(op, b, method="pcg", checkpoint=object()),
          NotImplementedError),
         (lambda: be.solve(op, b, method="nope", l=2), ValueError),
-        (lambda: be.solve(op, b, l=2, governor=object()),
-         NotImplementedError),
-        (lambda: be.solve(op, b, l=2, telemetry_cap=8), NotImplementedError),
+        # The telemetry ring and the governor are ported (their own tests:
+        # tests/test_torch_telemetry.py, tests/test_torch_stability.py);
+        # a negative ring size is refused.
+        (lambda: be.solve(op, b, l=2, telemetry_cap=-1), ValueError),
         (lambda: be.solve(op, b, l=2, checkpoint=object()),
          NotImplementedError),
         (lambda: be.solve(op, b, l=2, recurrence="nope"), ValueError),
