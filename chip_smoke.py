@@ -49,9 +49,10 @@ Phases, each printed as one JSON line; every phase raises on failure:
    ``fused_dots`` and its cuBLAS yardstick also by device time, in turns;
 10. pipelines deeper than the compile-time kernels (l > 8): the
    runtime-depth superkernel against the plain vector phase at l in {9, 12,
-   16} and at the deepest l whose shared memory fits, on laplace2d and
-   icesheet3d (with the check's peak device memory), the next depth refused
-   with both byte counts, a 100-update l = 9 solve, and times;
+   16} on laplace2d and at l in {9, 12, 16, 27, 32} and the deepest l whose
+   shared memory fits on icesheet3d (with the check's peak device memory),
+   the next depth refused with both byte counts, a 100-update l = 9
+   solve, and times (laplace2d at l = 9, 12, 16; icesheet3d at 27, 32);
 11. decode attention with kv_len a tensor on the card, under
    ``torch.cuda.set_sync_debug_mode("error")``, bit for bit against the
    integer path (kv_len in {S, 30 001, 0, -1, S + 5, S_padded + 7, 12 345}
@@ -547,25 +548,31 @@ def runtime_depth_phase(dev, randn, phase_scal, superkernel_vs_plain,
                         lap_sig_fn) -> tuple[dict, float, dict]:
     """Pipelines deeper than the compile-time kernels (l > LMAX) through
     the runtime-depth superkernel: rows bitwise against the plain vector
-    phase at l in {9, 12, 16} and at the deepest l whose shared memory
-    fits, on laplace2d (2048^2; its slab at that depth is 26.5 GB, and the
-    check's peak device memory is reported) and icesheet3d; the first
-    depth past it refused with both byte counts; a 100-update l = 9 solve (the path
-    whose launches are counted) against the unfused solve; and the times.
+    phase at l in {9, 12, 16} on laplace2d (2048^2) and at l in {9, 12, 16,
+    27, 32} and the deepest l whose shared memory fits on icesheet3d
+    (laplace2d's slab at l = 27 alone is 26.5 GB; the check's peak device
+    memory is reported); the first depth past it refused with both byte
+    counts; a 100-update l = 9 solve (the path whose launches are counted)
+    against the unfused solve; and the times at l in {9, 12, 16}
+    (laplace2d) and {27, 32} (icesheet3d).
     Returns (launches, max abs error, timings)."""
     import torch
 
     from repro_torch.kernels import _build, fused_iter as fi, ops as kops
     from repro_torch.linalg import Stencil2D5
 
+    t0 = time.perf_counter()
     deepest = fi.deepest_runtime_l(fi.smem_optin("fused_iter_stencil2d5",
                                                  dev))
+    depths = {"laplace2d": (9, 12, 16),
+              "icesheet3d": (9, 12, 16, 27, 32, deepest)}
     cases, row_err, part_err = {}, 0.0, 0.0
     for name, op in (("laplace2d", lap_op), ("icesheet3d", ice_op)):
         torch.cuda.reset_peak_memory_stats(dev)
         held = torch.cuda.memory_allocated(dev)
-        r, p_, c = superkernel_vs_plain([op], depths=(9, 12, 16, deepest))
-        tot = {"cases": c, "rows_max_abs_diff": r,
+        r, p_, c = superkernel_vs_plain([op], depths=depths[name])
+        tot = {"depths": list(depths[name]), "cases": c,
+               "rows_max_abs_diff": r,
                "partials_max_diff_over_abs_sum": p_,
                "device_bytes_held_before": held,
                "peak_device_bytes": torch.cuda.max_memory_allocated(dev)}
@@ -611,30 +618,35 @@ def runtime_depth_phase(dev, randn, phase_scal, superkernel_vs_plain,
     del r_f, r_p
 
     timings = {}
-    for l in (9, 12, 16):
+    for key, op, pr, l in [
+            *((f"fused_iter_runtime_l{l}", lap_op, lap_prec, l)
+              for l in (9, 12, 16)),
+            *((f"fused_iter_runtime_icesheet3d_l{l}", ice_op, ice_prec, l)
+              for l in (27, 32))]:
         layout = fi.SlabLayout(l=l, RB=l + 1)
-        fiter = kops.fused_iteration_factory(lap_op, lap_prec)(layout)
+        fiter = kops.fused_iteration_factory(op, pr)(layout)
         host = fi.host_idx(layout, 2 * l + 3)
         idx = torch.tensor(host, dtype=torch.int32, device=dev)
         scal = phase_scal(l)
-        S = randn(layout.nv, lap_op.n) * 1e-3
-        timings[f"fused_iter_runtime_l{l}"] = timed(
+        S = randn(layout.nv, op.n) * 1e-3
+        timings[key] = timed(
             lambda: fiter(S, idx, scal),
-            fi.min_bytes(layout, host, lap_op.n, has_prec=True,
-                         has_diag=False),
+            fi.min_bytes(layout, host, op.n, has_prec=True, has_diag=False,
+                         operand_bytes=fiter.spmv.operand_bytes),
             plain=lambda: fiter.plain(S, idx, scal), plain_reps=2)
         del S
         torch.cuda.empty_cache()
     rec = {"phase": "runtime_depth_vs_plain", "lmax_compile_time": fi.LMAX,
            "lmax_runtime": deepest,
            "smem_bytes": {str(l): fi.runtime_smem_bytes(l)
-                          for l in (9, 12, 16, deepest)},
+                          for l in sorted({*depths["icesheet3d"],
+                                           beyond})},
            "refused_beyond": refusal, "cases": cases,
            "partials_bound": PARTIAL_BOUND, "solve_l9": {
                "launches": launches, "iters_restarts_fused_unfused": counts,
                "history_head_max_vs_unfused": head, "head_bound": 1e-5,
                "history_max_rel_diff_vs_unfused": hist_rel},
-           "timings": timings}
+           "timings": timings, "seconds": time.perf_counter() - t0}
     emit(rec)
     if row_err != 0 or not part_err <= PARTIAL_BOUND:
         raise AssertionError("runtime-depth superkernel differs from its "
@@ -2130,7 +2142,8 @@ def stability_phase(dev, gpu, op, prec, b, solve_kw, main, main_digest,
             split["device_us"]["fused_iter_kernel_rt"] * 1e-3 / n_rt
             if n_rt else None),
         "rt_profiled_wall_ms_per_iteration": 1e3 * split["wall_s"]
-        / max(n_rt, 1)}
+        / max(n_rt, 1),
+        "rt_device_busy_share": per_iter(split, n_rt)["device_busy_share"]}
     if err is None or tried != [16, 8, 4, 2, 1] or rt_launches == 0:
         failed.append("ladder")
 

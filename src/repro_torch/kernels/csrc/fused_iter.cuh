@@ -45,21 +45,39 @@
 //   the same iteration hit that row, so it could not change anything.
 // * --fmad=false and the plain version's order of operations make every row
 //   update bitwise equal to the plain PyTorch version on the card.
-// * No atomics.  Each block reduces its (2l+1) products in shared memory by
-//   a fixed pairwise tree; a second launch sums the per-block partials in a
-//   fixed order (strided per thread, then a tree).  The result is
-//   deterministic run to run.  That order differs from XLA's and from
-//   torch.sum's, and is the only reason the partials differ from the plain
-//   version's.
+// * No atomics.  The compile-time kernels reduce each block's (2l+1)
+//   products in shared memory by a fixed pairwise tree over the 256
+//   threads.  The runtime-depth kernel sums each product across its warp
+//   as soon as it is formed (warp_sums8: a fixed butterfly over the 32
+//   lanes), then the block's 8 warp sums by the fixed tree
+//   ((w0 + w1) + (w2 + w3)) + ((w4 + w5) + (w6 + w7)).  A second launch
+//   sums the per-block partials in a fixed order (strided per thread, then
+//   a tree).  The result is deterministic run to run.  These orders differ
+//   from XLA's and from torch.sum's, and are the only reason the partials
+//   differ from the plain version's.
 // * idx and scal are read from device memory inside the kernels, so a
 //   launch needs no host synchronisation.
 // * Depth.  l <= LMAX is instantiated at compile time (per-thread arrays in
 //   registers).  Deeper pipelines take fused_iter_kernel_rt, which keeps
-//   l as a runtime argument and the per-thread values (the l fill and l
-//   recurrence values, the 2l+1 products) in dynamic shared memory; its
-//   size, rt_smem_bytes(l), is what bounds the depth (l <= 27 on an H100,
-//   232 448 bytes a block).  Both kernels run one vector_phase, templated
-//   on where those values live, so their rows are bitwise the same.
+//   l as a runtime argument.  Its loops have runtime bounds, so it loads
+//   the operand rows in chunks of compile-time width (RT_REC_CHUNK depths
+//   of the recurrence, three rows each; RT_CHUNK fill rows or products),
+//   every load of a chunk before its arithmetic, for several loads in
+//   flight a thread.  It keeps only the l fill and l recurrence values in
+//   dynamic shared memory (they wait for the stores: every load of the
+//   phase precedes its first store).  Each product is taken as its operand
+//   row arrives (u_new is known from (K1) on) and summed across the warp
+//   at once, so a product needs 8 doubles of a block, not 256.  The
+//   registers (64 a thread, RT_MIN_BLOCKS) and the shared memory,
+//   rt_smem_bytes(l) (about 4.2 KB a depth), set how many blocks an SM
+//   holds (4 at l = 9 and 12, 3 at l = 16, 2 at l = 27), and the shared
+//   memory bounds the depth (l <= 54 on an H100, 232 448 bytes a block).
+//   Measured against one loop that issues a chunk of recurrence rows and
+//   of products together (fewer round trips, but 80 registers: 3 blocks),
+//   these split loops at 4 blocks were faster at l = 9 and 12 and level on
+//   the depth ladder's l = 16 rung (scripts/superkernel_ab.py).  Both
+//   kernels compute (K1) and (K6) by the same helpers and every row value
+//   by the same expression, so their rows are bitwise the same.
 // * Halo-extended plug-ins (a shard of a row partition).  The operand is
 //   built outside the kernel (the wrapper's `prepare`, the Pallas
 //   plug-in's halo exchange) and read in place of the ring-top copy:
@@ -95,7 +113,14 @@
 namespace fi {
 
 constexpr int BLOCK = 256;
+constexpr int NWARP = BLOCK / 32;
 constexpr int LMAX = 8;
+constexpr int RT_REC_CHUNK = 4;   // runtime depth: recurrence depths loaded
+                                  // together (3 rows each)
+constexpr int RT_CHUNK = 8;       // runtime depth: fill rows or products
+                                  // loaded together (warp_sums8's width)
+constexpr int RT_MIN_BLOCKS = 4;  // runtime depth: blocks an SM must hold
+                                  // (caps the registers at 64 a thread)
 constexpr int ELL_CHUNK = 8;                // gathers issued before their sums
 constexpr int ELL_TILE_BYTES = 64 * 1024;   // most a staged tile may take
 
@@ -109,12 +134,13 @@ constexpr bool is_halo(int kind) {
          kind == SPMV_ELL_HALO;
 }
 
-// Dynamic shared memory of fused_iter_kernel_rt at depth l: the (2l+1)
-// products, l fill and l recurrence values of each thread (doubles), the
-// scalar vector, then the index vector and the two store masks (ints).
+// Dynamic shared memory of fused_iter_kernel_rt at depth l: the l fill and
+// l recurrence values of each thread and the (2l+1) products' warp sums
+// (doubles), the scalar vector, then the index vector and the two store
+// masks (ints).
 __host__ __device__ constexpr long long rt_smem_bytes(int l) {
-  return (long long)(4 * l + 1) * BLOCK * 8 + (8 + l) * 8 + (8 * l + 9) * 4 +
-         2 * l * 4;
+  return (long long)2 * l * BLOCK * 8 + (2 * l + 1) * NWARP * 8 +
+         (8 + l) * 8 + (8 * l + 9) * 4 + 2 * l * 4;
 }
 
 struct Spmv {
@@ -273,9 +299,7 @@ struct Ix {
 enum { SIG_I = 0, GAM_NEW = 1, D2 = 2, DLT_SAFE = 3, ZET_PREV = 4,
        D_PREV = 5, ETA_NEW_SAFE = 6, ETA0_SAFE = 7, C1 = 8 };
 
-// Where a thread's per-depth values live.  Compile-time depth: register
-// arrays.  Runtime depth: dynamic shared memory, [k][BLOCK] so a warp's
-// accesses are conflict-free, the products in the reduction buffer.
+// A thread's per-depth values in the compile-time kernels: register arrays.
 template <int L>
 struct RegVals {
   double fill_[L], rec_[L], prod_[2 * L + 1];
@@ -283,24 +307,33 @@ struct RegVals {
   __device__ __forceinline__ double& rec(int k) { return rec_[k]; }
   __device__ __forceinline__ double& prod(int k) { return prod_[k]; }
 };
-struct SmemVals {
-  double *red, *fill_, *rec_;
-  int tid;
-  __device__ __forceinline__ double& fill(int k) {
-    return fill_[k * BLOCK + tid];
-  }
-  __device__ __forceinline__ double& rec(int k) {
-    return rec_[k * BLOCK + tid];
-  }
-  __device__ __forceinline__ double& prod(int k) {
-    return red[k * BLOCK + tid];
-  }
-};
 
-// Every block loads the index and scalar vectors to shared memory, and its
-// thread 0 works out the two store masks: a masked write stores the row's
-// original value, so it is skipped unless an earlier write of this
-// iteration targeted the same row.
+// Store mask t of a block (t < L: store_fill[t], else store_rec[t - L]): a
+// masked write stores the row's original value, so it is skipped unless an
+// earlier write of this iteration targeted the same row.
+__device__ __forceinline__ int store_mask(int L, const Ix& ix,
+                                          const int* idx, int t) {
+  if (t < L) {
+    bool s = idx[ix.F_FILL + t] != 0;
+    for (int k2 = 0; k2 < t; ++k2)
+      s = s || idx[ix.FILL + k2] == idx[ix.FILL + t];
+    return s;
+  }
+  const int k = t - L;
+  bool s = idx[ix.F_LATE] != 0;
+  for (int k2 = 0; k2 < L; ++k2)
+    s = s || idx[ix.FILL + k2] == idx[ix.REC_W + k];
+  for (int k2 = 0; k2 < k; ++k2)
+    s = s || idx[ix.REC_W + k2] == idx[ix.REC_W + k];
+  return s;
+}
+
+// Every block loads the index and scalar vectors to shared memory and works
+// out the two store masks (store_mask's tests): thread 0 alone in its own
+// loops (the compile-time kernels; the same masks through store_mask made
+// them ~3 % slower at l = 2), or thread t mask t (SPREAD, the runtime-depth
+// kernel: at l = 54 one thread would take ~4 000 comparisons).
+template <bool SPREAD = false>
 __device__ __forceinline__ void block_setup(
     int L, const int* __restrict__ idx_g, const double* __restrict__ scal_g,
     int* idx, double* scal, int* store_fill, int* store_rec) {
@@ -309,7 +342,10 @@ __device__ __forceinline__ void block_setup(
   for (int t = tid; t < ix.IDX_SIZE; t += BLOCK) idx[t] = idx_g[t];
   for (int t = tid; t < 8 + L; t += BLOCK) scal[t] = scal_g[t];
   __syncthreads();
-  if (tid == 0) {
+  if constexpr (SPREAD) {
+    for (int t = tid; t < 2 * L; t += BLOCK)
+      (t < L ? store_fill[t] : store_rec[t - L]) = store_mask(L, ix, idx, t);
+  } else if (tid == 0) {
     const bool late_ = idx[ix.F_LATE] != 0;
     for (int k = 0; k < L; ++k) {
       bool s = idx[ix.F_FILL + k] != 0;
@@ -329,58 +365,104 @@ __device__ __forceinline__ void block_setup(
   __syncthreads();
 }
 
-// One column's vector phase, written once for both kernels: LC is the
-// compile-time depth (loops unroll, V = RegVals<LC>) or 0 (depth l at run
-// time, V = SmemVals).  For a column j < n: the kernels zero the products
-// of columns past it outside this call, since an early return here made
-// the compile-time kernel slower (scripts/superkernel_ab.py sets two
-// checkouts side by side).
-// Every operand row is loaded before any store; the (2l+1) dot-block
-// products are taken after the stores.  TILE: the SPMV reads the staged
-// ELL tile (spmv_at).
-template <int KIND, bool STABLE, bool PREC, int LC, class V, bool TILE = false>
-__device__ __forceinline__ void vector_phase(
-    double* S, long long ld, int rb, int l, const int* __restrict__ idx,
-    const double* __restrict__ scal, const int* __restrict__ store_fill,
-    const int* __restrict__ store_rec, const Spmv& sp,
-    const double* __restrict__ inv_diag, V& v) {
-  const int L = LC > 0 ? LC : l;
-  const Ix ix(L);
-  const long long j = (long long)blockIdx.x * BLOCK + threadIdx.x;
-  const int u_off = (L + 1) * rb;
-  double* const x_row = S + (long long)(u_off + 4) * ld;
-  double* const p_row = S + (long long)(u_off + 3) * ld;
-  auto row = [&](int r) -> double* { return S + (long long)r * ld; };
+// (K1) at column j: the SPMV of the ring-top row, the pointwise
+// preconditioner, u_new, z_new and the pipeline-fill value z_fill.
+struct K1 {
+  double u_new, z_new, z_fill;
+};
+
+template <int KIND, bool STABLE, bool PREC, bool TILE>
+__device__ __forceinline__ K1 k1_values(
+    const double* S, long long ld, long long j, const Ix& ix,
+    const int* __restrict__ idx, const double* __restrict__ scal,
+    const Spmv& sp, const double* __restrict__ inv_diag) {
+  auto row = [&](int r) -> const double* { return S + (long long)r * ld; };
   const bool late = idx[ix.F_LATE] != 0;
   const double zt = row(idx[ix.Z_TOP])[j];
   const double ui = row(idx[ix.U_I])[j];
   const double uim1 = row(idx[ix.U_IM1])[j];
-
-  // ---- (K1) SPMV + pointwise preconditioner
   const double az = spmv_at<KIND, TILE>(sp, j, zt);
   const double u_new0 = az - scal[SIG_I] * ui;
   const double u_new =
       late ? (u_new0 - scal[GAM_NEW] * ui - scal[D2] * uim1) / scal[DLT_SAFE]
            : u_new0;
-  double z_new, z_fill;
   if constexpr (STABLE) {
-    z_new = PREC ? inv_diag[j] * u_new : u_new;
-    z_fill = z_new;
+    const double z_new = PREC ? inv_diag[j] * u_new : u_new;
+    return {u_new, z_new, z_new};
   } else {
     const double z_new0 = PREC ? inv_diag[j] * u_new0 : u_new0;
     const double zl = row(idx[ix.ZL_IM1])[j];
-    z_new = late ? (z_new0 - scal[GAM_NEW] * zt - scal[D2] * zl) /
-                       scal[DLT_SAFE]
-                 : z_new0;
-    z_fill = z_new0;
+    const double z_new = late ? (z_new0 - scal[GAM_NEW] * zt -
+                                 scal[D2] * zl) / scal[DLT_SAFE]
+                              : z_new0;
+    return {u_new, z_new, z_new0};
   }
+}
+
+// (K6) the values the x and p rows take at column j, read before any store.
+struct K6 {
+  double x, p;
+};
+
+__device__ __forceinline__ K6 k6_values(const double* S, long long ld,
+                                        int u_off, long long j, const Ix& ix,
+                                        const int* __restrict__ idx,
+                                        const double* __restrict__ scal) {
+  const double x_old = S[(long long)(u_off + 4) * ld + j];
+  const double p_old = S[(long long)(u_off + 3) * ld + j];
+  const double p_first = S[j] / scal[ETA0_SAFE];
+  const double p_new =
+      (S[(long long)idx[ix.P_IM] * ld + j] - scal[D_PREV] * p_old) /
+      scal[ETA_NEW_SAFE];
+  const double x_new = x_old + scal[ZET_PREV] * p_old;
+  const bool do_upd = idx[ix.F_UPD] != 0;
+  const bool is_first = idx[ix.F_FIRST] != 0;
+  return {do_upd ? x_new : x_old,
+          is_first ? p_first : (do_upd ? p_new : p_old)};
+}
+
+// The phase's last four stores, in the plain version's order.
+__device__ __forceinline__ void store_tail(double* S, long long ld, int u_off,
+                                           long long j, const Ix& ix,
+                                           const int* __restrict__ idx,
+                                           const K1& h, const K6& k6) {
+  S[(long long)idx[ix.Z_W] * ld + j] = h.z_new;
+  S[(long long)idx[ix.U_W] * ld + j] = h.u_new;
+  S[(long long)(u_off + 4) * ld + j] = k6.x;
+  S[(long long)(u_off + 3) * ld + j] = k6.p;
+}
+
+// One column's vector phase at compile-time depth L (loops unroll,
+// values in registers).  For a column j < n: the kernels zero the products
+// of columns past it outside this call, since an early return here made
+// the kernel slower (scripts/superkernel_ab.py sets two checkouts side by
+// side).
+// Every operand row is loaded before any store; the (2l+1) dot-block
+// products are taken after the stores.  TILE: the SPMV reads the staged
+// ELL tile (spmv_at).
+template <int KIND, bool STABLE, bool PREC, int L, bool TILE = false>
+__device__ __forceinline__ void vector_phase(
+    double* S, long long ld, int rb, const int* __restrict__ idx,
+    const double* __restrict__ scal, const int* __restrict__ store_fill,
+    const int* __restrict__ store_rec, const Spmv& sp,
+    const double* __restrict__ inv_diag, RegVals<L>& v) {
+  const Ix ix(L);
+  const long long j = (long long)blockIdx.x * BLOCK + threadIdx.x;
+  const int u_off = (L + 1) * rb;
+  auto row = [&](int r) -> double* { return S + (long long)r * ld; };
+  const bool late = idx[ix.F_LATE] != 0;
+
+  // ---- (K1) SPMV + pointwise preconditioner
+  const K1 h =
+      k1_values<KIND, STABLE, PREC, TILE>(S, ld, j, ix, idx, scal, sp,
+                                          inv_diag);
 
   // ---- pipeline-fill copies (values; stored below)
 #pragma unroll
   for (int k = 0; k < L; ++k) {
     double f = 0.0;
     if (store_fill[k])
-      f = idx[ix.F_FILL + k] != 0 ? z_fill : row(idx[ix.FILL + k])[j];
+      f = idx[ix.F_FILL + k] != 0 ? h.z_fill : row(idx[ix.FILL + k])[j];
     v.fill(k) = f;
   }
 
@@ -407,17 +489,10 @@ __device__ __forceinline__ void vector_phase(
 #pragma unroll
   for (int t = 0; t < L - 1; ++t)
     v.prod(L + 1 + t) = row(idx[ix.MAT_Z + t])[j];
-  v.prod(2 * L) = z_new;
+  v.prod(2 * L) = h.z_new;
 
   // ---- (K6) solution / search-direction updates
-  const double x_old = x_row[j];
-  const double p_old = p_row[j];
-  const double p_first = S[j] / scal[ETA0_SAFE];
-  const double p_new =
-      (row(idx[ix.P_IM])[j] - scal[D_PREV] * p_old) / scal[ETA_NEW_SAFE];
-  const double x_new = x_old + scal[ZET_PREV] * p_old;
-  const bool do_upd = idx[ix.F_UPD] != 0;
-  const bool is_first = idx[ix.F_FIRST] != 0;
+  const K6 k6 = k6_values(S, ld, u_off, j, ix, idx, scal);
 
   // ---- stores, in the plain version's order
 #pragma unroll
@@ -426,21 +501,154 @@ __device__ __forceinline__ void vector_phase(
 #pragma unroll
   for (int k = 0; k < L; ++k)
     if (store_rec[k]) row(idx[ix.REC_W + k])[j] = v.rec(k);
-  row(idx[ix.Z_W])[j] = z_new;
-  row(idx[ix.U_W])[j] = u_new;
-  x_row[j] = do_upd ? x_new : x_old;
-  p_row[j] = is_first ? p_first : (do_upd ? p_new : p_old);
+  store_tail(S, ld, u_off, j, ix, idx, h, k6);
 
 #pragma unroll
-  for (int k = 0; k < 2 * L + 1; ++k) v.prod(k) = v.prod(k) * u_new;
+  for (int k = 0; k < 2 * L + 1; ++k) v.prod(k) = v.prod(k) * h.u_new;
 }
 
-// Per-block partials of the nd products in red ([nd][BLOCK]): a fixed
-// pairwise tree, the same at either depth path.
-template <int NDC>
-__device__ __forceinline__ void block_partials(double* red, int nd,
+// The warp's sums of v[0..7] (one value of each a lane): a fixed butterfly
+// that halves the values a lane holds at lane offsets 16, 8 and 4, then
+// adds across offsets 2 and 1.  Every lane whose bits 4..2 spell
+// q = 4 b4 + 2 b3 + b2 returns the sum of v[q] over the 32 lanes.
+__device__ __forceinline__ double warp_sums8(double (&v)[8]) {
+  const unsigned FULL = 0xffffffffu;
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int w = 4, off = 16; w >= 1; w >>= 1, off >>= 1) {
+    const bool hi = (lane & off) != 0;
+#pragma unroll
+    for (int q = 0; q < w; ++q) {
+      const double send = hi ? v[q] : v[q + w];
+      const double keep = hi ? v[q + w] : v[q];
+      v[q] = keep + __shfl_xor_sync(FULL, send, off);
+    }
+  }
+  double s = v[0];
+  s = s + __shfl_xor_sync(FULL, s, 2);
+  s = s + __shfl_xor_sync(FULL, s, 1);
+  return s;
+}
+
+// One column's vector phase at runtime depth L (the runtime-depth kernel).
+// Every thread of the block takes part, for the warp sums: a thread past n
+// reads column 0, contributes zero products and stores nothing.  Loads come
+// in chunks (RT_REC_CHUNK, RT_CHUNK), all of a chunk before its arithmetic;
+// every load precedes the first store.  fill_s and rec_s ([L][BLOCK]) keep
+// the values for the stores; product k's warp sum goes to red[k][warp].
+template <int KIND, bool STABLE, bool PREC>
+__device__ __forceinline__ void vector_phase_rt(
+    double* S, long long n, long long ld, int rb, int L,
+    const int* __restrict__ idx, const double* __restrict__ scal,
+    const int* __restrict__ store_fill, const int* __restrict__ store_rec,
+    const Spmv& sp, const double* __restrict__ inv_diag,
+    double* __restrict__ fill_s, double* __restrict__ rec_s,
+    double* __restrict__ red) {
+  static_assert(RT_CHUNK == 8, "warp_sums8 sums 8 products");
+  const Ix ix(L);
+  const int tid = threadIdx.x, lane = tid & 31, ND = 2 * L + 1;
+  const long long jn = (long long)blockIdx.x * BLOCK + tid;
+  const bool in = jn < n;
+  const long long j = in ? jn : 0;
+  const int u_off = (L + 1) * rb;
+  auto row = [&](int r) -> double* { return S + (long long)r * ld; };
+  const bool late = idx[ix.F_LATE] != 0;
+
+  // ---- (K1) and (K6): their loads in flight together
+  const K1 h =
+      k1_values<KIND, STABLE, PREC, false>(S, ld, j, ix, idx, scal, sp,
+                                           inv_diag);
+  const K6 k6 = k6_values(S, ld, u_off, j, ix, idx, scal);
+
+  // ---- pipeline-fill copies (values, for the stores)
+  for (int k0 = 0; k0 < L; k0 += RT_CHUNK) {
+    double f[RT_CHUNK];
+#pragma unroll
+    for (int u = 0; u < RT_CHUNK; ++u) {
+      const int k = k0 + u;
+      f[u] = k < L && store_fill[k] && idx[ix.F_FILL + k] == 0
+                 ? row(idx[ix.FILL + k])[j]
+                 : h.z_fill;
+    }
+#pragma unroll
+    for (int u = 0; u < RT_CHUNK; ++u)
+      if (k0 + u < L && store_fill[k0 + u])
+        fill_s[(k0 + u) * BLOCK + tid] = f[u];
+  }
+
+  // ---- (K4) basis recurrences, masked late
+  if (late) {
+    for (int k0 = 0; k0 < L; k0 += RT_REC_CHUNK) {
+      double a[RT_REC_CHUNK], b[RT_REC_CHUNK], c[RT_REC_CHUNK];
+#pragma unroll
+      for (int u = 0; u < RT_REC_CHUNK; ++u) {
+        const int k = k0 + u;
+        a[u] = b[u] = c[u] = 0.0;
+        if (k < L) {
+          a[u] = row(idx[ix.REC_A + k])[j];
+          b[u] = row(idx[ix.REC_B + k])[j];
+          c[u] = row(idx[ix.REC_C + k])[j];
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < RT_REC_CHUNK; ++u) {
+        const int k = k0 + u;
+        if (k < L)
+          rec_s[k * BLOCK + tid] =
+              (a[u] + scal[C1 + k] * b[u] - scal[D2] * c[u]) /
+              scal[DLT_SAFE];
+      }
+    }
+  } else {
+    for (int k0 = 0; k0 < L; k0 += RT_CHUNK) {
+      double r[RT_CHUNK];
+#pragma unroll
+      for (int u = 0; u < RT_CHUNK; ++u) {
+        const int k = k0 + u;
+        r[u] = k < L && (k == 0 || store_rec[k]) ? row(idx[ix.REC_W + k])[j]
+                                                 : 0.0;
+      }
+#pragma unroll
+      for (int u = 0; u < RT_CHUNK; ++u)
+        if (k0 + u < L) rec_s[(k0 + u) * BLOCK + tid] = r[u];
+    }
+  }
+  const double rec0 = rec_s[tid];
+
+  // ---- (K5) the dot-block products, each taken as its operand arrives and
+  // summed across the warp at once.  Product k's operand: row mat_v[k]
+  // (k < L), rec(0) (k = L), row mat_z[k - L - 1] (L < k < 2L; mat_z
+  // follows mat_v in idx), z_new (k = 2L).
+  const int q = (lane >> 4 & 1) * 4 + (lane >> 3 & 1) * 2 + (lane >> 2 & 1);
+  for (int k0 = 0; k0 < ND; k0 += RT_CHUNK) {
+    double v[RT_CHUNK];
+#pragma unroll
+    for (int u = 0; u < RT_CHUNK; ++u) {
+      const int k = k0 + u;
+      v[u] = k < 2 * L && k != L ? row(idx[ix.MAT_V + k - (k > L)])[j]
+                                 : (k == L ? rec0 : h.z_new);
+    }
+#pragma unroll
+    for (int u = 0; u < RT_CHUNK; ++u)
+      v[u] = in && k0 + u < ND ? v[u] * h.u_new : 0.0;
+    const double sum = warp_sums8(v);
+    if ((lane & 3) == 0 && k0 + q < ND) red[(k0 + q) * NWARP + (tid >> 5)] = sum;
+  }
+
+  // ---- stores, in the plain version's order
+  if (!in) return;
+  for (int k = 0; k < L; ++k)
+    if (store_fill[k]) row(idx[ix.FILL + k])[j] = fill_s[k * BLOCK + tid];
+  for (int k = 0; k < L; ++k)
+    if (store_rec[k]) row(idx[ix.REC_W + k])[j] = rec_s[k * BLOCK + tid];
+  store_tail(S, ld, u_off, j, ix, idx, h, k6);
+}
+
+// Per-block partials of the ND products in red ([ND][BLOCK]) of the
+// compile-time kernels: a fixed pairwise tree.
+template <int ND>
+__device__ __forceinline__ void block_partials(double* red,
                                                double* __restrict__ part) {
-  const int ND = NDC > 0 ? NDC : nd;
   const int tid = threadIdx.x;
   __syncthreads();
 #pragma unroll
@@ -484,7 +692,7 @@ __global__ void __launch_bounds__(BLOCK)
   block_setup(L, idx_g, scal_g, idx, scal, store_fill, store_rec);
   RegVals<L> v;
   if ((long long)blockIdx.x * BLOCK + threadIdx.x < n) {
-    vector_phase<KIND, STABLE, PREC, L>(S, ld, rb, L, idx, scal, store_fill,
+    vector_phase<KIND, STABLE, PREC, L>(S, ld, rb, idx, scal, store_fill,
                                         store_rec, sp, inv_diag, v);
   } else {
 #pragma unroll
@@ -492,7 +700,7 @@ __global__ void __launch_bounds__(BLOCK)
   }
 #pragma unroll
   for (int k = 0; k < ND; ++k) red[k * BLOCK + threadIdx.x] = v.prod(k);
-  block_partials<ND>(red, ND, part);
+  block_partials<ND>(red, part);
 }
 
 // The compile-time kernel for the ELL plug-in with its operator staged:
@@ -559,8 +767,8 @@ __global__ void __launch_bounds__(BLOCK)
     spt.z = S + c * cs + (long long)idx[Ix(L).Z_TOP] * ld;
     RegVals<L> v;
     if (j < n) {
-      vector_phase<KIND, STABLE, PREC, L, RegVals<L>, true>(
-          S + c * cs, ld, rb, L, idx, scal, store_fill, store_rec, spt,
+      vector_phase<KIND, STABLE, PREC, L, true>(
+          S + c * cs, ld, rb, idx, scal, store_fill, store_rec, spt,
           inv_diag, v);
     } else {
 #pragma unroll
@@ -568,38 +776,41 @@ __global__ void __launch_bounds__(BLOCK)
     }
 #pragma unroll
     for (int k = 0; k < ND; ++k) red[k * BLOCK + tid] = v.prod(k);
-    block_partials<ND>(red, ND, part + (long long)c * ND * gridDim.x);
+    block_partials<ND>(red, part + (long long)c * ND * gridDim.x);
   }
 }
 
-// The same vector phase with the depth l a runtime argument, for l > LMAX:
-// the per-thread values in dynamic shared memory (rt_smem_bytes(l)).
+// The vector phase with the depth l a runtime argument, for l > LMAX, in
+// rt_smem_bytes(l) of dynamic shared memory: vector_phase_rt, then each
+// product's 8 warp sums added by a fixed tree into the block's partial.
 template <int KIND, bool STABLE, bool PREC>
-__global__ void __launch_bounds__(BLOCK)
+__global__ void __launch_bounds__(BLOCK, RT_MIN_BLOCKS)
     fused_iter_kernel_rt(double* S, long long n, long long ld, long long cs,
                          int rb, int L, const int* __restrict__ idx_g,
                          const double* __restrict__ scal_g, Spmv sp,
                          long long zs, const double* __restrict__ inv_diag,
                          double* __restrict__ part) {
+  static_assert(NWARP == 8, "the tree below adds 8 warp sums");
   const int ND = 2 * L + 1;
   FI_TO_COLUMN(L);
   extern __shared__ double smem[];
-  double* const red = smem;                        // [ND][BLOCK]
-  double* const fill_val = red + ND * BLOCK;       // [L][BLOCK]
-  double* const rec_val = fill_val + L * BLOCK;    // [L][BLOCK]
-  double* const scal = rec_val + L * BLOCK;        // [8 + L]
+  double* const fill_s = smem;                     // [L][BLOCK]
+  double* const rec_s = fill_s + L * BLOCK;        // [L][BLOCK]
+  double* const red = rec_s + L * BLOCK;           // [ND][NWARP]
+  double* const scal = red + ND * NWARP;           // [8 + L]
   int* const idx = (int*)(scal + 8 + L);           // [8L + 9]
   int* const store_fill = idx + 8 * L + 9;         // [L]
   int* const store_rec = store_fill + L;           // [L]
-  block_setup(L, idx_g, scal_g, idx, scal, store_fill, store_rec);
-  SmemVals v{red, fill_val, rec_val, (int)threadIdx.x};
-  if ((long long)blockIdx.x * BLOCK + threadIdx.x < n) {
-    vector_phase<KIND, STABLE, PREC, 0>(S, ld, rb, L, idx, scal, store_fill,
-                                        store_rec, sp, inv_diag, v);
-  } else {
-    for (int k = 0; k < ND; ++k) v.prod(k) = 0.0;
+  block_setup<true>(L, idx_g, scal_g, idx, scal, store_fill, store_rec);
+  vector_phase_rt<KIND, STABLE, PREC>(S, n, ld, rb, L, idx, scal, store_fill,
+                                      store_rec, sp, inv_diag, fill_s, rec_s,
+                                      red);
+  __syncthreads();
+  for (int k = threadIdx.x; k < ND; k += BLOCK) {
+    const double* w = red + k * NWARP;
+    part[(long long)k * gridDim.x + blockIdx.x] =
+        ((w[0] + w[1]) + (w[2] + w[3])) + ((w[4] + w[5]) + (w[6] + w[7]));
   }
-  block_partials<0>(red, ND, part);
 }
 
 // Row k of column blockIdx.y's (nd, nb) per-block partials summed in a
@@ -705,7 +916,8 @@ cudaError_t launch_staged(Args a) {
 }
 
 // The runtime-depth kernel; it opts in to the card's largest dynamic
-// shared memory once per device and refuses a depth that does not fit.
+// shared memory and carveout once per device and refuses a depth that does
+// not fit.
 template <int KIND, bool STABLE, bool PREC>
 cudaError_t launch_rt(Args a, int l) {
   static bool opted[64] = {};
@@ -718,9 +930,14 @@ cudaError_t launch_rt(Args a, int l) {
   const long long smem = rt_smem_bytes(l);
   if (smem > optin || dev >= 64) return cudaErrorInvalidValue;
   if (!opted[dev]) {
+    // the largest carveout, so that as many blocks as fit share an SM
     e = cudaFuncSetAttribute(fused_iter_kernel_rt<KIND, STABLE, PREC>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              optin);
+    if (e == cudaSuccess)
+      e = cudaFuncSetAttribute(fused_iter_kernel_rt<KIND, STABLE, PREC>,
+                               cudaFuncAttributePreferredSharedMemoryCarveout,
+                               cudaSharedmemCarveoutMaxShared);
     if (e != cudaSuccess) return e;
     opted[dev] = true;
   }

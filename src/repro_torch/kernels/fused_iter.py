@@ -335,6 +335,7 @@ _ARGTYPES = [ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
              ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p]
 MAX_SLAB = 65535     # columns of one slab launch (the second grid dimension)
 BLOCK = 256          # threads per block, fixed in csrc/fused_iter.cuh
+NWARP = BLOCK // 32  # warps per block
 LMAX = 8             # deepest pipeline instantiated at compile time
 ELL_TILE_BYTES = 64 * 1024   # most shared memory a staged ELL tile takes
 BULK_ALIGN = 16      # the bulk copy's address and size unit
@@ -376,10 +377,12 @@ def ell_tile_plan(n: int, w: int, cols_offset: int,
 
 def runtime_smem_bytes(l: int) -> int:
     """Dynamic shared memory a block of the runtime-depth kernel takes at
-    depth l (``rt_smem_bytes`` in csrc/fused_iter.cuh): the 2l+1 products
-    and l fill and l recurrence values of each of the BLOCK threads, the
-    scalar vector, the index vector and two store masks."""
-    return (4 * l + 1) * BLOCK * 8 + (8 + l) * 8 + (8 * l + 9) * 4 + 2 * l * 4
+    depth l (``rt_smem_bytes`` in csrc/fused_iter.cuh): the l fill and l
+    recurrence values of each of the BLOCK threads, the 2l+1 products'
+    NWARP warp sums, the scalar vector, the index vector and two store
+    masks."""
+    return (2 * l * BLOCK * 8 + (2 * l + 1) * NWARP * 8 + (8 + l) * 8
+            + (8 * l + 9) * 4 + 2 * l * 4)
 
 
 def deepest_runtime_l(smem_optin: int) -> int:

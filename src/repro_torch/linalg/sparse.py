@@ -14,7 +14,7 @@ the same chain, so a kernel-routed solve is bitwise equal to a plain
 one on the card.
 
 ``SlicedEllOp`` and ``sliced_ell_reorder`` are not ported yet (ROADMAP.md,
-queue 1 item 4).
+queue 1 item 4b).
 """
 
 from __future__ import annotations

@@ -8,26 +8,37 @@ contract a multiply-add into one FMA, so a row agrees to 1e-13 relative
 to the largest magnitude in its expression (the slab's and the SPMV's
 scale) rather than bitwise.  Dot partials are sums over N in a different
 order (torch.sum vs XLA): |diff| <= 1e-13 * sum_j |m_kj u_j|.
+
+The tests marked ``cuda`` hold the kernels against the plain versions on
+the card, whose machine has no JAX: they build their operators from the
+port alone (``_port_op``).
 """
 
 import dataclasses
+import importlib.util
 
-import jax
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-jax.config.update("jax_enable_x64", True)
 torch.set_num_threads(1)
 
-from repro.configs import icesheet3d as jice  # noqa: E402
-from repro.configs.problems import build_operator as jbuild  # noqa: E402
-from repro.kernels import ref as jref  # noqa: E402
-from repro.kernels import fused_iter as jfi  # noqa: E402
-from repro.kernels.ops import fused_iteration_factory as jfactory  # noqa: E402
-from repro.linalg import operators as jops  # noqa: E402
-from repro.linalg.preconditioners import JacobiPrec as JJacobi  # noqa: E402
+# A card's machine has no JAX and runs only the cuda tests; where JAX is
+# installed, the reference package is imported unguarded.
+HAVE_JAX = importlib.util.find_spec("jax") is not None
+if HAVE_JAX:
+    import jax
+    import jax.numpy as jnp
+
+    jax.config.update("jax_enable_x64", True)
+    from repro.configs import icesheet3d as jice
+    from repro.configs.problems import build_operator as jbuild
+    from repro.kernels import ref as jref
+    from repro.kernels import fused_iter as jfi
+    from repro.kernels.ops import fused_iteration_factory as jfactory
+    from repro.linalg import operators as jops
+    from repro.linalg.preconditioners import JacobiPrec as JJacobi
+
 from repro_torch import convert  # noqa: E402
 from repro_torch.kernels import fused_iter as tfi  # noqa: E402
 from repro_torch.kernels import ref as tref  # noqa: E402
@@ -43,6 +54,34 @@ def cuda_device():
         pytest.skip("needs an NVIDIA card (torch.cuda.is_available() is "
                     "False)")
     return torch.device("cuda")
+
+
+@pytest.fixture
+def with_jax():
+    if not HAVE_JAX:
+        pytest.skip("needs JAX, the reference")
+
+
+def _port_op(name, device="cpu", wide=False):
+    """The port's operator of ``_pair(name)``, built without JAX; ``wide``
+    takes wider grids, of several blocks and a ragged last one (the card
+    tests)."""
+    from repro_torch.configs import icesheet3d
+    from repro_torch.configs.problems import build_operator
+    from repro_torch.linalg import (DiagonalOp, Stencil3D7, Stencil3D27,
+                                    laplacian_2d_spectrum)
+
+    if name == "ell":
+        return build_operator(icesheet3d.smoke_config(), device=device)
+    if name == "stencil2d5":
+        return Stencil2D5(*((40, 30) if wide else (16, 12)), device=device)
+    if name == "stencil3d7":
+        return Stencil3D7(*((10, 9, 7) if wide else (8, 6, 4)), eps_z=0.1,
+                          device=device)
+    if name == "stencil3d27":
+        return Stencil3D27(*((9, 7, 5) if wide else (6, 6, 4)), device=device)
+    return DiagonalOp(laplacian_2d_spectrum(*((40, 30) if wide else (8, 6)),
+                                            device=device))
 
 
 def _pair(name):
@@ -89,7 +128,7 @@ def _compare(S_j, d_j, S_t, d_t, scale_rows, mat, u):
 @pytest.mark.parametrize("name", ["stencil2d5", "stencil3d7", "stencil3d27",
                                   "diagonal", "ell"])
 @pytest.mark.parametrize("l", [1, 2, 3])
-def test_vector_phase_matches_jax_ref(name, l):
+def test_vector_phase_matches_jax_ref(name, l, with_jax):
     jop, top = _pair(name)
     for rec in ("ghysels", "stable"):
         for jac in (False, True):
@@ -124,7 +163,7 @@ def test_vector_phase_matches_jax_ref(name, l):
     ("ell", 2, "ghysels", True),
     ("ell", 3, "stable", False),
 ])
-def test_port_matches_jax_superkernel_interpret(name, l, rec, jac):
+def test_port_matches_jax_superkernel_interpret(name, l, rec, jac, with_jax):
     """The JAX Pallas superkernel, run in interpret mode as the JAX
     package's own tests run it, against the port's superkernel wrapper on
     the CPU (its plain version)."""
@@ -147,7 +186,7 @@ def test_port_matches_jax_superkernel_interpret(name, l, rec, jac):
         _compare(S_j, d_j, S_t, d_t, scale, mat.numpy(), u.numpy())
 
 
-def test_layouts_match_jax():
+def test_layouts_match_jax(with_jax):
     for l in range(1, 7):
         assert tfi.idx_layout(l) == jfi.idx_layout(l)
         assert tfi.scal_layout(l) == jfi.scal_layout(l)
@@ -225,13 +264,16 @@ def test_superkernel_rows_bitwise_on_card(cuda_device):
 # ------------------------------------------------ deeper pipelines (l > 8) --
 
 def test_runtime_depth_sizes():
-    """The runtime-depth kernel's shared memory per block: l = 9 takes
-    76 308 bytes; on an H100 (232 448 bytes a block) l = 27 is the deepest
-    (224 628 bytes) and l = 28 (232 868 bytes) does not fit."""
-    assert tfi.runtime_smem_bytes(9) == 76308
-    assert tfi.runtime_smem_bytes(27) == 224628
-    assert tfi.runtime_smem_bytes(28) == 232868
-    assert tfi.deepest_runtime_l(232448) == 27
+    """The runtime-depth kernel's shared memory per block (the l fill and l
+    recurrence values of 256 threads, 8 warp sums of each product): l = 9
+    takes 38 612 bytes, l = 16 68 516 (three blocks an SM); on an H100
+    (232 448 bytes a block) l = 54 is the deepest (230 852 bytes) and
+    l = 55 (235 124 bytes) does not fit."""
+    assert tfi.runtime_smem_bytes(9) == 38612
+    assert tfi.runtime_smem_bytes(16) == 68516
+    assert tfi.runtime_smem_bytes(54) == 230852
+    assert tfi.runtime_smem_bytes(55) == 235124
+    assert tfi.deepest_runtime_l(232448) == 54
     assert tfi.launch_key("stencil2d5", tfi.LMAX) == "fused_iter"
     assert tfi.launch_key("ell", 2) == "fused_iter_ell"
     assert tfi.launch_key("ell_halo", 2) == "fused_iter_ell_halo"
@@ -241,11 +283,12 @@ def test_runtime_depth_sizes():
 
 
 @pytest.mark.parametrize("name", ["stencil2d5", "ell"])
-@pytest.mark.parametrize("l", [9, 12])
-def test_deep_pipeline_fused_path_matches_jax_ref(name, l):
+@pytest.mark.parametrize("l", [9, 12, 16, 28])
+def test_deep_pipeline_fused_path_matches_jax_ref(name, l, with_jax):
     """l > 8 through the fused path's plain version on the CPU (the
     superkernel wrapper of the fused factory) against the JAX package's
-    ``fused_iter_ref``."""
+    ``fused_iter_ref``; l = 28 is past the runtime-depth kernel's deepest
+    before its products were summed by warps."""
     jop, top = _pair(name)
     layout = tfi.SlabLayout(l=l, RB=max(l + 1, 3))
     jl = jfi.SlabLayout(l=l, RB=max(l + 1, 3))
@@ -276,11 +319,7 @@ def _shard_case(name, device="cpu"):
     from repro_torch.linalg import partition as tpart
     from repro_torch.parallel.distributed import halo_first_dim
 
-    _, top = _pair(name)
-    top = top.to(device) if name == "ell" else \
-        convert.operator(name, device=device,
-                         **{k: v for k, v in convert.operator_fields(top)
-                            .items() if k != "kind"})
+    top = _port_op(name, device)
     p, nl = N_SHARDS, top.n // N_SHARDS
     if name == "ell":
         plan = tpart.partition_spd(top, p)
@@ -364,7 +403,7 @@ def test_shard_plugin_choice():
                             ident) is None
     assert fused_spmv_local(Stencil2D5(8, 4, use_kernel=True, device="cpu"),
                             {}, 2, ident) is None
-    _, ell = _pair("ell")
+    ell = _port_op("ell")
     assert fused_spmv_local(
         dataclasses.replace(ell, use_kernel=True), {}, 2, ident) is None
     sp = fused_spmv_local(Stencil3D7(8, 6, 4, device="cpu"), {}, 4, ident)
@@ -396,8 +435,93 @@ def test_halo_plugins_and_deep_pipelines_bitwise_on_card(cuda_device):
             S_w, _ = tfactory(top)(layout)(S.clone(), idx, scal)
             assert torch.equal(S_h, S_w)
     op = Stencil2D5(16, 12, device=cuda_device)
-    layout = tfi.SlabLayout(l=28, RB=29)
-    S, idx, scal = convert.vector_phase(*_triple(layout, op.n, 60, 0),
-                                        cuda_device)
-    with pytest.raises(ValueError, match="232868 bytes"):
+    beyond = tfi.deepest_runtime_l(
+        tfi.smem_optin("fused_iter_stencil2d5", cuda_device)) + 1
+    layout = tfi.SlabLayout(l=beyond, RB=beyond + 1)
+    S, idx, scal = convert.vector_phase(
+        *_triple(layout, op.n, 3 * beyond, 0), cuda_device)
+    with pytest.raises(ValueError, match=f"l = {beyond} .* "
+                       f"{tfi.runtime_smem_bytes(beyond)} bytes"):
         tfactory(op)(layout)(S, idx, scal)
+
+
+def _rows_and_partials(fiter, apply_a, prec, layout, S, idx, scal):
+    """One launch of ``fiter`` on the card against its plain version:
+    (rows bitwise, max |partial - plain| / sum |m u|); S is (NV, n) or a
+    slab (s, NV, n)."""
+    S_p, _ = fiter.plain(S, idx, scal)
+    S_k, d_k = fiter(S.clone(), idx, scal)
+    torch.cuda.synchronize()
+    pfun = (lambda v: v) if prec is None else prec
+    worst = 0.0
+    for c in range(S.shape[0] if S.dim() == 3 else 1):
+        one = (lambda t: t[c]) if S.dim() == 3 else (lambda t: t)
+        _, mat, u = tref.fused_iter_unfused(one(S), one(idx), one(scal),
+                                            apply_a, pfun, layout)
+        d_p = (mat * u[None, :]).sum(dim=1)
+        scale = (mat.abs() * u.abs()[None, :]).sum(dim=1)
+        worst = max(worst, float(((one(d_k) - d_p).abs() / scale).max()))
+    return torch.equal(S_k, S_p), worst
+
+
+@pytest.mark.cuda
+def test_runtime_depth_bitwise_on_card(cuda_device):
+    """The runtime-depth kernel on the card against the plain vector phase
+    at l in {9, 16, 27, 28} (28: past its deepest before the products were
+    summed by warps), every plug-in kind (the single-device ones on grids
+    of several blocks, the halo ones on a shard of 4), both recurrences,
+    Jacobi on and off, at several cycle positions and as a slab of 3
+    columns each at its own cycle index: rows bitwise, partials within
+    1e-13 sum |m u|, and every launch counted under
+    ``fused_iter_runtime_l``."""
+    from repro_torch.kernels import _build
+    from repro_torch.linalg import JacobiPrec
+    from repro_torch.parallel.distributed import fused_spmv_local
+
+    for l in (9, 16, 27, 28):
+        for rec in ("ghysels", "stable"):
+            layout = tfi.SlabLayout(l=l, RB=l + 1, recurrence=rec)
+            for jac in (False, True):
+                for name in ("stencil2d5", "stencil3d7", "stencil3d27",
+                             "diagonal", "ell"):
+                    op = _port_op(name, cuda_device, wide=True)
+                    prec = JacobiPrec.from_operator(op) if jac else None
+                    fiter = tfactory(op, prec)(layout)
+                    papply = None if prec is None else prec.apply
+                    cases = [convert.vector_phase(
+                        *_triple(layout, op.n, i, seed=l + i), cuda_device)
+                        for i in (0, l - 1, l, 2 * l + 3)]
+                    trip = [_triple(layout, op.n, 2 * l + 1 + c, seed=c)
+                            for c in range(3)]
+                    cases.append(tuple(torch.tensor(np.stack(a),
+                                                    device=cuda_device)
+                                       for a in zip(*trip)))
+                    for S, idx, scal in cases:
+                        _build.reset_launches()
+                        same, worst = _rows_and_partials(
+                            fiter, op.apply, papply, layout, S, idx, scal)
+                        assert same, (name, l, rec, jac)
+                        assert worst <= RTOL, (name, l, rec, jac, worst)
+                        key = tfi.launch_key(name, l, slab=S.dim() == 3)
+                        assert _build.LAUNCHES[key] == 1
+                for name in ("stencil2d5", "stencil3d7", "ell"):
+                    top, locs, halo = _shard_case(name, cuda_device)
+                    nl = top.n // N_SHARDS
+                    S, idx, scal = convert.vector_phase(
+                        *_triple(layout, top.n, 2 * l + 3, seed=l),
+                        cuda_device)
+                    zt = S[int(idx[tfi.idx_layout(l)["z_top"]])]
+                    ext = halo(zt.reshape(N_SHARDS, nl))
+                    inv = 1.0 / top.diag() if jac else None
+                    sh = 1
+                    spmv = fused_spmv_local(top, locs[sh], N_SHARDS,
+                                            lambda z: ext[sh])
+                    inv_s = None if inv is None else \
+                        inv[sh * nl:(sh + 1) * nl].contiguous()
+                    fiter = tfi.build_fused_iteration(layout, spmv, inv_s)
+                    S_s = S[:, sh * nl:(sh + 1) * nl].contiguous()
+                    same, worst = _rows_and_partials(
+                        fiter, spmv.expr,
+                        None if inv_s is None else (lambda v: inv_s * v),
+                        layout, S_s, idx, scal)
+                    assert same and worst <= RTOL, (name, l, rec, jac, worst)
