@@ -121,6 +121,22 @@ Phases, each printed as one JSON line; every phase raises on failure:
    sheets; ``SolverService`` with ``telemetry_cap``, each retired request
    carrying its ring.
 
+18. checkpoint and restore (``checkpoint_phase``): phase 3's solve through
+   ``CheckpointConfig(every=2000)``: the segmented oracle bitwise the plain
+   solve of its effective config (equal host syncs and launches); the
+   same with snapshots (bitwise, two host reads a boundary, each snapshot
+   timed: true residual, copy, hash, write); killed at its third
+   boundary and resumed from the second snapshot, bitwise the oracle and
+   converged; a byte-flipped snapshot and a tol-mismatched resume refused
+   with their typed errors; Ghysels p-CG on icesheet3d killed and resumed
+   (``every=15``), bitwise.
+
+19. sliced ELL (``sliced_ell_phase``): ``sliced_ell_reorder`` of the
+   icesheet3d operator (slices of 64 rows): occupancy before and after,
+   the width groups, the grouped apply bitwise against the per-slice loop
+   and timed beside ``ell_spmv`` and its bytes bound, and an unfused
+   p(2)-CG + Jacobi solve of the permuted system.
+
 Every kernel row of phases 8 and 9 carries its device time (profiler)
 beside its event time.
 
@@ -2216,6 +2232,354 @@ def stability_phase(dev, gpu, op, prec, b, solve_kw, main, main_digest,
     return launches
 
 
+# --------------------------------------------------------------------------
+# Phase 18 (checkpoint): checkpoint and restore on one card.
+# --------------------------------------------------------------------------
+
+CKPT_EVERY = 2000           # laplace2d: a snapshot at least every 2 000
+CKPT_EVERY_ICE = 15         # updates; icesheet3d p-CG (~40 updates)
+
+
+def checkpoint_phase(gpu, op, prec, b, solve_kw, main, iop, iprec, ib,
+                     ice_kw) -> dict:
+    """Checkpoint and restore through ``LocalBackend.solve(...,
+    checkpoint=CheckpointConfig(...))`` on laplace2d 2048^2 with
+    ``main_solve``'s settings (fused p(2)-CG, Jacobi, ``unroll=16``):
+
+    1. the oracle: the segmented solve with no directory, bitwise the
+       plain solve of ``effective_kw`` (``replace_every=2000``) with equal
+       host syncs and superkernel launches;
+    2. the same with a directory and a counting ``on_boundary``: bitwise
+       the oracle, two host reads a boundary (the hook's and the
+       snapshot's), the snapshots timed;
+    3. the kill: ``on_boundary`` raises at the third boundary, after two
+       snapshots (``keep=2``);
+    4. the resume (``resume=True``) to convergence: ``LAST_RESTORE`` the
+       second snapshot, history and x bitwise the oracle's, true residual
+       below 10 tol, one superkernel launch a vector phase (the kill's
+       launches those of the persisted run to its third boundary, the
+       resume's those after its second);
+    5. a byte-flipped copy of the snapshot: ``CheckpointCorruptError``; a
+       resume with another tol: ``CheckpointMismatchError``;
+    6. Ghysels p-CG on icesheet3d (Jacobi, ``every=15``): the same kill
+       and resume, bitwise.
+
+    Every directory is a temporary one, removed at the end.  Returns the
+    superkernel launches of the kill and the resume."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from repro_torch.checkpoint import (LAST_RESTORE, SNAPSHOTS,
+                                        CheckpointConfig,
+                                        CheckpointCorruptError,
+                                        CheckpointMismatchError,
+                                        effective_kw, latest_checkpoint,
+                                        list_checkpoints, load_checkpoint)
+    from repro_torch.kernels import _build
+    from repro_torch.parallel.backends import LocalBackend
+
+    t_phase = time.perf_counter()
+    be = LocalBackend()
+    out = {"phase": "checkpoint", "gpu": gpu, "problem": "laplace2d",
+           "n": op.n, "every": CKPT_EVERY}
+    root = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+
+    def run(label, bb, o, pr, kw, cfg=None, method="plcg"):
+        """One solve, its launches read just after: (result or the
+        exception it raised, record)."""
+        torch.cuda.synchronize()
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        try:
+            r = be.solve(o, bb, method=method, prec=pr, checkpoint=cfg,
+                         **kw)
+            torch.cuda.synchronize()
+        except Exception as e:          # the kill's exception, checked
+            r = e
+        wall = time.perf_counter() - t0
+        rec = {"wall_s": wall, "launches": dict(_build.LAUNCHES)}
+        if not isinstance(r, Exception):
+            rec.update(iters=int(r.iters), restarts=int(r.restarts),
+                       converged=bool(r.converged),
+                       host_syncs=r.host_syncs)
+        out[label] = rec
+        return r, rec
+
+    def same(a, c):
+        return bool(torch.equal(a.res_history, c.res_history)
+                    and torch.equal(a.x, c.x))
+
+    class Killed(Exception):
+        pass
+
+    try:
+        # ---- 1. the oracle and the plain solve of its effective config --
+        ck = CheckpointConfig(every=CKPT_EVERY)
+        r_o, o_rec = run("oracle", b, op, prec, solve_kw, ck)
+        r_e, e_rec = run("effective_plain", b, op, prec,
+                         effective_kw("plcg", solve_kw, CKPT_EVERY))
+        n_phases = o_rec["launches"].get("fused_iter", 0)
+        out["oracle"]["vector_phases"] = n_phases
+        out["oracle_bitwise_effective"] = same(r_o, r_e)
+        if not (same(r_o, r_e) and o_rec["host_syncs"] == e_rec["host_syncs"]
+                and n_phases == e_rec["launches"].get("fused_iter", -1) > 0):
+            raise AssertionError("the segmented solve is not the plain "
+                                 "solve of its effective config")
+        true_rel = float(torch.linalg.norm(b - op.apply(r_o.x))
+                         / torch.linalg.norm(b))
+        out["oracle"]["true_rel_residual"] = true_rel
+        if not bool(r_o.converged) or not true_rel < 10 * TOL:
+            raise AssertionError("the checkpointed oracle did not converge")
+        del r_e
+
+        # ---- 2. persisted, every boundary counted ------------------------
+        at = []         # superkernel launches at each boundary
+
+        def count(upd):
+            at.append(_build.LAUNCHES["fused_iter"])
+
+        d_full = os.path.join(root, "full")
+        n_snap0 = len(SNAPSHOTS)
+        r_f, f_rec = run("persisted", b, op, prec, solve_kw,
+                         CheckpointConfig(every=CKPT_EVERY,
+                                          directory=d_full,
+                                          on_boundary=count))
+        snaps = SNAPSHOTS[n_snap0:]
+        f_rec["boundaries"] = len(at)
+        f_rec["extra_host_syncs"] = f_rec["host_syncs"] - o_rec["host_syncs"]
+        if not (same(r_o, r_f) and len(snaps) == len(at) >= 3
+                and f_rec["extra_host_syncs"] == 2 * len(at)):
+            raise AssertionError("persisting changed the solve or cost "
+                                 "other than two host reads a boundary")
+        del r_f
+        ms = {k: 1e3 * sum(s[k] for s in snaps) / len(snaps)
+              for k in ("rel_s", "copy_s", "hash_s", "write_s")}
+        out["snapshot"] = {
+            "count": len(snaps), "bytes": snaps[-1]["bytes"],
+            "ms_mean": {k[:-2]: v for k, v in ms.items()},
+            "ms_total_mean": sum(ms.values()),
+            "ms_max": 1e3 * max(sum(s[k] for k in ms) for s in snaps)}
+
+        # ---- 3. the kill at the third boundary ---------------------------
+        d = os.path.join(root, "killed")
+        seen = []
+
+        def kill(upd):
+            seen.append(upd)
+            if len(seen) == 3:
+                raise Killed(f"killed at update {upd}")
+
+        err, k_rec = run("killed", b, op, prec, solve_kw,
+                         CheckpointConfig(every=CKPT_EVERY, directory=d,
+                                          keep=2, on_boundary=kill))
+        kept = list_checkpoints(d)
+        k_rec["killed_at_update"] = seen[-1]
+        k_rec["snapshots_kept"] = [os.path.basename(p) for p in kept]
+        if not isinstance(err, Killed) or len(kept) != 2:
+            raise AssertionError(f"the kill did not stop the solve after "
+                                 f"two snapshots: {err!r}, {kept}")
+
+        # ---- 4. the resume -------------------------------------------
+        n_restore = len(LAST_RESTORE)
+        r_r, r_rec = run("resumed", b, op, prec, solve_kw,
+                         CheckpointConfig(every=CKPT_EVERY, directory=d,
+                                          keep=2, resume=True))
+        restored = LAST_RESTORE[-1] if len(LAST_RESTORE) > n_restore \
+            else None
+        true_rel = float(torch.linalg.norm(b - op.apply(r_r.x))
+                         / torch.linalg.norm(b))
+        r_rec["true_rel_residual"] = true_rel
+        r_rec["restored_from"] = (os.path.basename(restored.path)
+                                  if restored else None)
+        r_rec["restored_tot"] = restored.meta["tot"] if restored else None
+        kl = k_rec["launches"].get("fused_iter", 0)
+        rl = r_rec["launches"].get("fused_iter", 0)
+        f_total = f_rec["launches"].get("fused_iter", 0)
+        checks = {
+            "restored_second_snapshot": bool(
+                restored and restored.path == kept[1]
+                and restored.meta["tot"] > 0),
+            "bitwise_oracle": same(r_o, r_r),
+            "converged": bool(r_r.converged) and true_rel < 10 * TOL,
+            "kill_launches_one_a_vector_phase": kl == at[2],
+            "resume_launches_one_a_vector_phase": rl == f_total - at[1],
+        }
+        out["killed_plus_resumed"] = {
+            "iters": int(r_r.iters), "restarts": int(r_r.restarts),
+            "wall_s": k_rec["wall_s"] + r_rec["wall_s"],
+            "superkernel_launches": kl + rl}
+        out["main_solve"] = {k: main[k] for k in
+                             ("iters", "restarts", "wall_s", "host_syncs",
+                              "vector_phases")}
+        del r_r
+
+        # ---- 5. typed refusals ----------------------------------------
+        bad = os.path.join(root, "corrupt")
+        os.makedirs(bad)
+        flipped = os.path.join(bad, os.path.basename(kept[1]))
+        shutil.copyfile(latest_checkpoint(d), flipped)
+        with open(flipped, "r+b") as f:
+            f.seek(os.path.getsize(flipped) // 2)
+            byte = f.read(1)
+            f.seek(-1, os.SEEK_CUR)
+            f.write(bytes([(byte[0] + 1) % 256]))
+        try:
+            load_checkpoint(flipped)
+            checks["byte_flip_refused"] = False
+        except CheckpointCorruptError:
+            checks["byte_flip_refused"] = True
+        try:
+            be.solve(op, b, prec=prec, **dict(solve_kw, tol=TOL / 2),
+                     checkpoint=CheckpointConfig(every=CKPT_EVERY,
+                                                 directory=d, resume=True))
+            checks["tol_mismatch_refused"] = False
+        except CheckpointMismatchError:
+            checks["tol_mismatch_refused"] = True
+
+        # ---- 6. Ghysels p-CG on icesheet3d --------------------------------
+        pkw = dict(tol=TOL, maxit=ice_kw["maxit"], unroll=16)
+        ice, n_b = {}, []
+        ice["oracle"], _ = run("icesheet_pcg_oracle", ib, iop, iprec, pkw,
+                               CheckpointConfig(every=CKPT_EVERY_ICE),
+                               method="pcg")
+        ice["persisted"], _ = run(
+            "icesheet_pcg_persisted", ib, iop, iprec, pkw,
+            CheckpointConfig(every=CKPT_EVERY_ICE,
+                             directory=os.path.join(root, "ice_p"),
+                             on_boundary=n_b.append), method="pcg")
+        kill_at = min(3, len(n_b))
+        seen = []
+
+        def kill_ice(upd):
+            seen.append(upd)
+            if len(seen) == kill_at:
+                raise Killed(f"killed at update {upd}")
+
+        d_ice = os.path.join(root, "ice")
+        err, _ = run("icesheet_pcg_killed", ib, iop, iprec, pkw,
+                     CheckpointConfig(every=CKPT_EVERY_ICE, directory=d_ice,
+                                      on_boundary=kill_ice), method="pcg")
+        ice_snap = latest_checkpoint(d_ice)
+        ice["resumed"], _ = run(
+            "icesheet_pcg_resumed", ib, iop, iprec, pkw,
+            CheckpointConfig(every=CKPT_EVERY_ICE, directory=d_ice,
+                             resume=True), method="pcg")
+        checks["icesheet_pcg_bitwise"] = bool(
+            isinstance(err, Killed) and kill_at >= 2
+            and LAST_RESTORE[-1].path == ice_snap
+            and same(ice["oracle"], ice["persisted"])
+            and same(ice["oracle"], ice["resumed"])
+            and bool(ice["resumed"].converged))
+        out["icesheet_pcg_killed_at_boundary"] = kill_at
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    out["checks"] = checks
+    out["seconds"] = time.perf_counter() - t_phase
+    emit(out)
+    if not all(checks.values()):
+        raise AssertionError(f"checkpoint phase failed: {checks}")
+    return {"fused_iter": kl + rl}
+
+
+# --------------------------------------------------------------------------
+# Phase 19 (sliced_ell): degree-sorted sliced ELL on icesheet3d.
+# --------------------------------------------------------------------------
+
+def sliced_ell_phase(gpu, iop, ib, ice_kw, ice_main, ell_device_ms) -> None:
+    """``sliced_ell_reorder(op, 64)`` of the RCM-ordered icesheet3d
+    operator (500 000 nodes, W = 11): occupancy before and after, the
+    slice count and width groups; ``SlicedEllOp.apply`` bitwise against
+    the per-slice loop (also as a CUDA graph), its event ms, profiler
+    device ms and graph-replay ms beside ``ell_spmv``'s device ms (phase
+    8) and its own bytes bound (the padded slots' vals and cols, x and y,
+    once); an unfused p(2)-CG + Jacobi solve of the permuted system."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.chebyshev import shifts_for_operator
+    from repro_torch.kernels.ref import ell_rowsum
+    from repro_torch.linalg import JacobiPrec
+    from repro_torch.linalg.sparse import sliced_ell_reorder
+    from repro_torch.parallel.backends import LocalBackend
+
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    sl, perm = sliced_ell_reorder(iop, 64)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    x = torch.randn(iop.n, dtype=torch.float64, device=iop.device,
+                    generator=torch.Generator(iop.device).manual_seed(19))
+    # The JAX package's apply, one gather and rowsum a slice (~7 800
+    # slices: host-bound), timed once.
+    t_loop = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    t_loop[0].record()
+    loop = torch.cat([ell_rowsum(v, x[c])
+                      for c, v in zip(sl.slice_cols, sl.slice_vals)])
+    t_loop[1].record()
+    torch.cuda.synchronize()
+    bitwise = bool(torch.equal(sl.apply(x), loop))
+    nbytes = sl.padded_slots * (8 + 4) + 2 * iop.n * 8
+    widths = {}
+    for c in sl.slice_cols:
+        widths[int(c.shape[1])] = widths.get(int(c.shape[1]), 0) + c.shape[0]
+    apply_ms = cuda_ms(lambda: sl.apply(x))
+    apply_dev = device_ms(lambda: sl.apply(x))
+    # The apply's ~120 launches replayed as one CUDA graph: events then
+    # time the device's work without the host's enqueueing.
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(2):
+            sl.apply(x)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        y_graph = sl.apply(x)
+    graph_ms = cuda_ms(graph.replay)
+    bitwise = bitwise and bool(torch.equal(y_graph, loop))
+    del graph, y_graph
+
+    tperm = torch.as_tensor(perm, device=iop.device)
+    bp = ib[tperm]
+    sp = JacobiPrec.from_operator(sl)
+    kw = dict(l=2, tol=TOL, maxit=ice_kw["maxit"], unroll=16,
+              sigmas=shifts_for_operator(sl, 2, prec=sp))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = LocalBackend().solve(sl, bp, prec=sp, **kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    true_rel = float(torch.linalg.norm(bp - sl.apply(res.x))
+                     / torch.linalg.norm(bp))
+    uniform = iop.nnz / (iop.n * iop.w)
+    rec = {"phase": "sliced_ell", "gpu": gpu, "problem": "icesheet3d",
+           "n": iop.n, "w": iop.w, "slice_rows": 64,
+           "host_setup_s": setup_s,
+           "occupancy_uniform": uniform, "occupancy_sliced": sl.occupancy(),
+           "slices": len(sl.slice_cols), "width_groups": len(sl.groups),
+           "rows_by_width": {str(k): v for k, v in sorted(widths.items())},
+           "padded_slots": sl.padded_slots,
+           "bitwise_per_slice_loop": bitwise,
+           "apply_ms": apply_ms, "apply_device_ms": apply_dev,
+           "apply_graph_replay_ms": graph_ms,
+           "per_slice_loop_ms": t_loop[0].elapsed_time(t_loop[1]),
+           "ell_spmv_device_ms": ell_device_ms,
+           "bytes": nbytes, "bound_ms": 1e3 * nbytes / PEAK_BYTES_PER_S,
+           "solve": {"method": "p(2)-CG unfused, Jacobi",
+                     "converged": bool(res.converged),
+                     "iters": int(res.iters),
+                     "restarts": int(res.restarts),
+                     "icesheet_solve_iters": ice_main["iters"],
+                     "wall_s": wall, "true_rel_residual": true_rel},
+           "seconds": time.perf_counter() - t_phase}
+    emit(rec)
+    if not (bitwise and sl.occupancy() >= 0.85 and bool(res.converged)
+            and true_rel < 10 * TOL and np.isfinite(apply_ms)):
+        raise AssertionError("sliced ELL phase failed")
+
+
 def main() -> int:
     import torch
 
@@ -2795,6 +3159,14 @@ def main() -> int:
     stab_launches = stability_phase(dev, gpu, op, prec, b, solve_kw, main,
                                     main_digest, iop, iprec, ib, ice_kw)
 
+    # ---- 18. checkpoint and restore ----------------------------------------
+    ckpt_launches = checkpoint_phase(gpu, op, prec, b, solve_kw, main, iop,
+                                     iprec, ib, ice_kw)
+
+    # ---- 19. sliced ELL ------------------------------------------------------
+    sliced_ell_phase(gpu, iop, ib, ice_kw, ice_main,
+                     timings["ell_spmv"]["device_ms"])
+
     # ---- contract lines --------------------------------------------------
     src_dir = "src/repro_torch/kernels/csrc/"
     kernels = []
@@ -2845,7 +3217,8 @@ def main() -> int:
             "library_device_ms": t.get("library_device_ms"),
             "launches_baselines": base_launches.get(name, 0),
             "launches_ranks": wire_launches.get(name, 0),
-            "launches_stability": stab_launches.get(name, 0)})
+            "launches_stability": stab_launches.get(name, 0),
+            "launches_checkpoint": ckpt_launches.get(name, 0)})
     for k in kernels:
         if k["launches"] == 0:
             raise AssertionError(f"{k['name']} was never launched on its path")

@@ -1,0 +1,52 @@
+"""Checkpoint and restore of one-device solves (counterpart of
+``repro.checkpoint``): ``CheckpointConfig(every=k)`` arms a segmented
+drive that snapshots the solver state at drained-ring interrupt
+boundaries, in the JAX package's content-hashed, versioned file format,
+and resumes bitwise on the same device (certified by one true-residual
+recompute on restore).  ``every=0`` leaves the solvers' path untouched.
+Over ranks (``MultiprocessBackend``) checkpointing is refused (ROADMAP.md,
+queue 1 item 6b, part two)."""
+
+from repro_torch.checkpoint.format import (CKPT_VERSION,
+                                           CheckpointCertificationError,
+                                           CheckpointCorruptError,
+                                           CheckpointError,
+                                           CheckpointMismatchError,
+                                           CheckpointVersionError,
+                                           content_hash, load_checkpoint,
+                                           save_checkpoint)
+from repro_torch.checkpoint.solve import (LAST_RESTORE, SNAPSHOTS,
+                                          CheckpointConfig, checkpoint_path,
+                                          checkpointed_solve, effective_kw,
+                                          latest_checkpoint,
+                                          list_checkpoints,
+                                          load_slab_checkpoint, make_rel_fn,
+                                          run_segmented,
+                                          save_slab_checkpoint,
+                                          state_payload, state_restore)
+
+__all__ = [
+    "CKPT_VERSION",
+    "CheckpointError",
+    "CheckpointCorruptError",
+    "CheckpointVersionError",
+    "CheckpointMismatchError",
+    "CheckpointCertificationError",
+    "CheckpointConfig",
+    "content_hash",
+    "save_checkpoint",
+    "load_checkpoint",
+    "checkpoint_path",
+    "list_checkpoints",
+    "latest_checkpoint",
+    "checkpointed_solve",
+    "effective_kw",
+    "make_rel_fn",
+    "run_segmented",
+    "state_payload",
+    "state_restore",
+    "save_slab_checkpoint",
+    "load_slab_checkpoint",
+    "LAST_RESTORE",
+    "SNAPSHOTS",
+]

@@ -212,12 +212,18 @@ def solve(ops: SolverOps, b, x0=None, tol: float = 1e-6, maxit: int = 1000,
 
     ``b`` is placed as ``pipelined_cg.solve`` places it.  ``unroll``
     iterations run between host checks of ``cond`` and of a due
-    replacement; the result is bitwise the same for every ``unroll``."""
-    if checkpoint is not None and getattr(checkpoint, "armed", True):
-        raise NotImplementedError(
-            "checkpointed solves are not ported yet (ROADMAP.md, queue 1 "
-            "item 6b)")
+    replacement; the result is bitwise the same for every ``unroll``.
+    ``checkpoint`` (``every > 0``) snapshots at replacement boundaries
+    (``repro_torch.checkpoint``); ``every=0`` or None leaves this path
+    untouched."""
     b = as_rhs(b, device)
+    if checkpoint is not None and checkpoint.armed:
+        from repro_torch.checkpoint import checkpointed_solve
+
+        return checkpointed_solve(
+            ops, b, "pcg", x0, checkpoint,
+            dict(tol=tol, maxit=maxit, replace_every=replace_every,
+                 unroll=unroll))
     prog = build(ops, b, tol=tol, maxit=maxit, replace_every=replace_every)
     st = prog.init(torch.zeros_like(b) if x0 is None
                    else as_tensor(x0, b.device, b.dtype))

@@ -46,7 +46,10 @@ JAX package line by line, and so do the telemetry ring
   reads with ``cond`` at its check, and the restart consumes it.
   ``governor=None`` computes none of it.
 
-``checkpoint`` is not ported yet and raises.
+``checkpoint`` (a ``repro_torch.checkpoint.CheckpointConfig`` with
+``every > 0``) hands the solve to ``checkpoint.checkpointed_solve``: the
+same host loop with snapshots at its interrupt boundaries, in the JAX
+package's file format.  ``every=0`` or None leaves this path untouched.
 
 The slab form (``build`` with an (s, N) ``b``, driven by
 ``core.batched``): each column keeps its own host cycle index, the
@@ -819,12 +822,19 @@ def solve(
     solve's (the fused superkernel takes fp64 only).  ``unroll`` is the
     number of iterations between host checks of the loop condition (one
     host synchronisation each); the result is bitwise the same for every
-    ``unroll``.  ``telemetry_cap`` and ``governor``: see :func:`build`."""
-    if checkpoint is not None and getattr(checkpoint, "armed", True):
-        raise NotImplementedError(
-            "checkpointed solves are not ported yet (ROADMAP.md, queue 1 "
-            "item 6b)")
+    ``unroll``.  ``telemetry_cap`` and ``governor``: see :func:`build`;
+    ``checkpoint``: see the module docstring."""
     b = as_rhs(b, device)
+    if checkpoint is not None and checkpoint.armed:
+        from repro_torch.checkpoint import checkpointed_solve
+
+        return checkpointed_solve(
+            ops, b, "plcg", x0, checkpoint,
+            dict(l=l, tol=tol, maxit=maxit, sigmas=sigmas,
+                 max_restarts=max_restarts, replace_every=replace_every,
+                 fused_iteration=fused_iteration,
+                 telemetry_cap=telemetry_cap, recurrence=recurrence,
+                 governor=governor, unroll=unroll))
     prog = build(ops, b, l, tol=tol, maxit=maxit, sigmas=sigmas,
                  max_restarts=max_restarts, replace_every=replace_every,
                  fused_iteration=fused_iteration, telemetry_cap=telemetry_cap,

@@ -13,8 +13,14 @@ hand-written ELL kernel (``kernels/csrc/ell_spmv.cu``), which follows
 the same chain, so a kernel-routed solve is bitwise equal to a plain
 one on the card.
 
-``SlicedEllOp`` and ``sliced_ell_reorder`` are not ported yet (ROADMAP.md,
-queue 1 item 4b).
+``SlicedEllOp`` (degree-sorted rows cut into slices, each padded to its
+own width) applies by width groups: the slices of one width stack into
+one block, each block is one gather and one :func:`ell_rowsum` chain, and
+the rows go back by a fixed permutation (a gather, never an atomic
+scatter): at most ``w_max`` groups an apply where the JAX package loops
+over ~n/64 slices, with every row's terms in the per-slice order, so the
+result is bitwise the per-slice loop's.  The superkernel has no sliced
+plug-in: a fused solve on a ``SlicedEllOp`` raises, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -31,7 +37,8 @@ from repro_torch.linalg.operators import LinearOperator
 
 __all__ = ["ell_rowsum", "SparseOp", "sparse_from_coo", "sparse_from_dense",
            "rcm_permutation", "bandwidth", "permute_spd", "rcm_reorder",
-           "random_fem_mesh", "random_fem_icesheet"]
+           "random_fem_mesh", "random_fem_icesheet", "SlicedEllOp",
+           "degree_sort_permutation", "sliced_ell_reorder"]
 
 
 def _host(a) -> np.ndarray:
@@ -290,6 +297,157 @@ def rcm_reorder(op: SparseOp) -> tuple[SparseOp, np.ndarray]:
     ``x_orig = x_perm[np.argsort(perm)]``."""
     perm = rcm_permutation(op)
     return permute_spd(op, perm, ordered=True), perm
+
+
+# --------------------------------------------------------------------------
+# Sliced ELL: degree-sorted row buckets, per-slice padding.
+# --------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class SlicedEllOp(LinearOperator):
+    """Sliced-ELL storage: rows sorted by nonzero count and cut into slices
+    of ``slice_rows`` rows, each slice padded only to its own max row
+    length instead of the global one (the JAX package's class).
+
+    slice_cols / slice_vals : per-slice (rows_s, w_s) int32 / value
+        arrays, tensors or numpy (moved to ``device``).
+    device : where they live; None means ``cuda``, or the device of a
+        first ``slice_cols`` tensor.
+
+    The slices of equal width form the width groups ``apply`` runs on
+    (``groups``: (cols, vals) blocks; ``rows_out``: the output position of
+    each group row, None when the groups are already in row order, which
+    degree sorting gives).
+    """
+
+    slice_rows: int
+    slice_cols: tuple
+    slice_vals: tuple
+    device: torch.device | str | None = None
+
+    def __post_init__(self):
+        first = self.slice_cols[0] if self.slice_cols else None
+        if self.device is None and isinstance(first, torch.Tensor):
+            object.__setattr__(self, "device", first.device)
+        dev = resolve_device(self.device)
+        cols = tuple(torch.as_tensor(np.asarray(_host(c)), dtype=torch.int32,
+                                     device=dev).contiguous()
+                     for c in self.slice_cols)
+        vals = tuple(torch.as_tensor(np.asarray(_host(v)),
+                                     device=dev).contiguous()
+                     for v in self.slice_vals)
+        if len(cols) != len(vals) or any(
+                c.dim() != 2 or c.shape != v.shape
+                for c, v in zip(cols, vals)):
+            raise ValueError("slice_cols and slice_vals must be matching "
+                             "(rows_s, w_s) arrays")
+        object.__setattr__(self, "device", dev)
+        object.__setattr__(self, "slice_cols", cols)
+        object.__setattr__(self, "slice_vals", vals)
+        # Width groups, in order of first appearance.
+        offs = np.cumsum([0] + [c.shape[0] for c in cols])
+        members: dict[int, list[int]] = {}
+        for s, c in enumerate(cols):
+            members.setdefault(int(c.shape[1]), []).append(s)
+        groups, order = [], []
+        for ss in members.values():
+            groups.append((torch.cat([cols[s] for s in ss]),
+                           torch.cat([vals[s] for s in ss])))
+            order.extend(range(offs[s], offs[s + 1]) for s in ss)
+        rows = np.concatenate([np.arange(r.start, r.stop) for r in order]
+                              ) if order else np.zeros(0, np.int64)
+        object.__setattr__(self, "groups", tuple(groups))
+        object.__setattr__(self, "group_rows", torch.as_tensor(
+            rows, dtype=torch.int64, device=dev))
+        inv = np.empty_like(rows)
+        inv[rows] = np.arange(rows.size)
+        object.__setattr__(self, "rows_out", None if np.array_equal(
+            inv, np.arange(rows.size)) else torch.as_tensor(inv, device=dev))
+
+    @property
+    def n(self) -> int:  # type: ignore[override]
+        return sum(int(c.shape[0]) for c in self.slice_cols)
+
+    @property
+    def nnz(self) -> int:
+        return int(sum(int(torch.count_nonzero(v)) for v in self.slice_vals))
+
+    @property
+    def padded_slots(self) -> int:
+        return int(sum(c.shape[0] * c.shape[1] for c in self.slice_cols))
+
+    def occupancy(self) -> float:
+        """Useful fraction of stored slots."""
+        return self.nnz / max(self.padded_slots, 1)
+
+    def padding_waste(self) -> float:
+        """Fraction of streamed slots that are padding (1 - occupancy)."""
+        return 1.0 - self.occupancy()
+
+    def _by_groups(self, parts: list[torch.Tensor]) -> torch.Tensor:
+        y = torch.cat(parts, dim=-1)
+        return y if self.rows_out is None else y[..., self.rows_out]
+
+    def apply(self, x: torch.Tensor) -> torch.Tensor:
+        """A x for x (n,) or an (s, n) slab: one gather and one
+        ``ell_rowsum`` chain a width group."""
+        return self._by_groups([ell_rowsum(v.to(x.dtype), x[..., c])
+                                for c, v in self.groups])
+
+    def diag(self) -> torch.Tensor:
+        parts, r0 = [], 0
+        for c, v in self.groups:
+            row = self.group_rows[r0:r0 + c.shape[0], None]
+            parts.append(torch.where(c == row, v, torch.zeros(
+                (), dtype=v.dtype, device=self.device)).sum(dim=-1))
+            r0 += c.shape[0]
+        return self._by_groups(parts)
+
+    def to_dense(self) -> np.ndarray:
+        n = self.n
+        a = np.zeros((n, n))
+        off = 0
+        for c, v in zip(self.slice_cols, self.slice_vals):
+            cc = _host(c)
+            vv = _host(v).astype(np.float64)
+            rows = np.repeat(np.arange(off, off + cc.shape[0]), cc.shape[1])
+            np.add.at(a, (rows, cc.reshape(-1)), vv.reshape(-1))
+            off += cc.shape[0]
+        return a
+
+
+def degree_sort_permutation(op: SparseOp) -> np.ndarray:
+    """Stable row permutation by DESCENDING nonzero count (``perm[new] =
+    old``); stability keeps the (RCM) order within a degree class."""
+    lengths = np.count_nonzero(_host(op.vals), axis=1)
+    return np.argsort(-lengths, kind="stable").astype(np.int64)
+
+
+def sliced_ell_reorder(op: SparseOp, slice_rows: int = 64
+                       ) -> tuple[SlicedEllOp, np.ndarray]:
+    """(sliced operator, perm) with ``perm[new] = old`` in the ORIGINAL
+    row numbering: the degree-sort permutation composed with the
+    operator's RCM ordering (applied first when ``op`` is not already
+    ``ordered``).  Solve with ``b[perm]``, un-permute with
+    ``np.argsort(perm)``, as for :func:`rcm_reorder`."""
+    if op.ordered:
+        base, base_perm = op, np.arange(op.n, dtype=np.int64)
+    else:
+        base, base_perm = rcm_reorder(op)
+    dperm = degree_sort_permutation(base)
+    perm = base_perm[dperm]
+    sorted_op = permute_spd(base, dperm, ordered=False)
+    cols = _host(sorted_op.cols)
+    vals = _host(sorted_op.vals)
+    lengths = np.count_nonzero(vals, axis=1)
+    sc, sv = [], []
+    for r0 in range(0, op.n, slice_rows):
+        r1 = min(r0 + slice_rows, op.n)
+        w_s = max(int(lengths[r0:r1].max(initial=1)), 1)
+        sc.append(cols[r0:r1, :w_s])
+        sv.append(vals[r0:r1, :w_s])
+    return SlicedEllOp(slice_rows=slice_rows, slice_cols=tuple(sc),
+                       slice_vals=tuple(sv), device=op.device), perm
 
 
 # --------------------------------------------------------------------------

@@ -30,6 +30,7 @@ from repro.linalg import operators as jops  # noqa: E402
 from repro.linalg.preconditioners import BlockJacobi as JBlockJacobi  # noqa: E402
 from repro.parallel import get_backend as jget_backend  # noqa: E402
 from repro_torch import convert  # noqa: E402
+from repro_torch.checkpoint import CheckpointConfig  # noqa: E402
 from repro_torch.core import SOLVERS, classic_cg, ghysels_pcg  # noqa: E402
 from repro_torch.core import pipelined_cg  # noqa: E402
 from repro_torch.core.types import SolverOps  # noqa: E402
@@ -200,9 +201,11 @@ def test_solver_refusals():
          ValueError),
         (lambda: ghysels_pcg.solve(SolverOps.local(op), b, unroll=0),
          ValueError),
-        (lambda: ghysels_pcg.solve(SolverOps.local(op), b,
-                                   checkpoint=object()),
-         NotImplementedError),
+        # Checkpointing is ported for p-CG (tests/test_torch_checkpoint.py);
+        # classic CG has no checkpoint boundary, as in the JAX package.
+        (lambda: classic_cg.solve(SolverOps.local(op), b,
+                                  checkpoint=CheckpointConfig(every=5)),
+         TypeError),
     ]:
         with pytest.raises(exc):
             bad()

@@ -28,6 +28,7 @@ from repro.core.types import SolverOps as JOps  # noqa: E402
 from repro.linalg import operators as jops  # noqa: E402
 from repro.linalg.preconditioners import JacobiPrec as JJacobi  # noqa: E402
 from repro_torch import convert  # noqa: E402
+from repro_torch.checkpoint import CheckpointConfig  # noqa: E402
 from repro_torch.configs import icesheet3d as tice  # noqa: E402
 from repro_torch.configs import laplace2d  # noqa: E402
 from repro_torch.configs.problems import build_operator  # noqa: E402
@@ -171,15 +172,18 @@ def test_local_backend_and_refusals():
     assert bool(res.converged) and float(rel) < 1e-5
     assert res.x.device.type == "cpu" and res.x.shape == (op.n,)
     for bad, exc in [
-        (lambda: be.solve(op, b, method="pcg", checkpoint=object()),
-         NotImplementedError),
+        # Checkpointing is ported (tests/test_torch_checkpoint.py): classic
+        # CG has no checkpoint boundary, and a p(l)-CG cadence must exceed
+        # the pipeline depth.
+        (lambda: be.solve(op, b, method="cg",
+                          checkpoint=CheckpointConfig(every=5)), TypeError),
         (lambda: be.solve(op, b, method="nope", l=2), ValueError),
         # The telemetry ring and the governor are ported (their own tests:
         # tests/test_torch_telemetry.py, tests/test_torch_stability.py);
         # a negative ring size is refused.
         (lambda: be.solve(op, b, l=2, telemetry_cap=-1), ValueError),
-        (lambda: be.solve(op, b, l=2, checkpoint=object()),
-         NotImplementedError),
+        (lambda: be.solve(op, b, l=2, checkpoint=CheckpointConfig(every=2)),
+         ValueError),
         (lambda: be.solve(op, b, l=2, recurrence="nope"), ValueError),
         (lambda: be.solve(Stencil2D5(32, 24, use_kernel=True, device="cpu"),
                           b, l=2, fused_iteration=True), ValueError),

@@ -507,3 +507,138 @@ def test_ell_spmv_slab_bitwise_on_card(cuda_device):
                     name, s, dt)
                 for c in range(s):
                     assert torch.equal(got[c], tel.ell_spmv(X[c], cols, v))
+
+
+# --------------------------------------------------------- sliced ELL ----
+# The three sliced-ELL tests of tests/test_sparse.py, each held against
+# the JAX package's function: the construction is the same host numpy, so
+# permutations, slice arrays, nnz and occupancy agree exactly; ``apply``
+# within the ELL tolerance above.
+
+def _same_slices(jsl, tsl):
+    assert len(jsl.slice_cols) == len(tsl.slice_cols)
+    for jc, jv, tc, tv in zip(jsl.slice_cols, jsl.slice_vals,
+                              tsl.slice_cols, tsl.slice_vals):
+        np.testing.assert_array_equal(tc.numpy(), np.asarray(jc))
+        np.testing.assert_array_equal(tv.numpy(), np.asarray(jv))
+    assert (tsl.n, tsl.nnz, tsl.padded_slots) == (jsl.n, jsl.nnz,
+                                                  jsl.padded_slots)
+    assert tsl.occupancy() == jsl.occupancy()
+
+
+def test_sliced_ell_matches_dense(with_jax):
+    """The sliced operator reproduces P A P^T exactly, the composed
+    permutation is a valid reordering, and both are the JAX package's."""
+    op = tsp.random_fem_mesh(4, 300, device="cpu")
+    sliced, perm = tsp.sliced_ell_reorder(op, slice_rows=32)
+    jsliced, jperm = jsp.sliced_ell_reorder(jsp.random_fem_mesh(4, 300),
+                                            slice_rows=32)
+    np.testing.assert_array_equal(perm, jperm)
+    _same_slices(jsliced, sliced)
+    assert sorted(perm.tolist()) == list(range(op.n))
+    a = op.to_dense()
+    np.testing.assert_allclose(sliced.to_dense(), a[np.ix_(perm, perm)],
+                               atol=1e-12)
+    np.testing.assert_array_equal(sliced.to_dense(), jsliced.to_dense())
+    x = np.random.default_rng(12).standard_normal(op.n)
+    inv = np.argsort(perm)
+    y = sliced.apply(torch.as_tensor(x[perm])).numpy()[inv]
+    np.testing.assert_allclose(y, op.apply(torch.as_tensor(x)).numpy(),
+                               atol=1e-11)
+    yj = np.asarray(jsliced.apply(jnp.asarray(x[perm])))
+    scale = np.abs(sliced.to_dense()) @ np.abs(x[perm])
+    np.testing.assert_array_less(np.abs(sliced.apply(torch.as_tensor(
+        x[perm])).numpy() - yj), RTOL * scale + 1e-300)
+    np.testing.assert_array_equal(sliced.diag().numpy(),
+                                  np.asarray(jsliced.diag()))
+
+
+def test_sliced_ell_occupancy_improves(with_jax):
+    """On the FEM problem class slot occupancy rises from ~0.58 to >= 0.85,
+    with nnz conserved, waste = 1 - occupancy and non-increasing slice
+    widths, as in the JAX package."""
+    op = tsp.random_fem_mesh(0, 1024, device="cpu")
+    uniform_occ = op.nnz / (op.n * op.w)
+    sliced, perm = tsp.sliced_ell_reorder(op, slice_rows=64)
+    jsliced, jperm = jsp.sliced_ell_reorder(jsp.random_fem_mesh(0, 1024),
+                                            slice_rows=64)
+    np.testing.assert_array_equal(perm, jperm)
+    _same_slices(jsliced, sliced)
+    assert sliced.nnz == op.nnz
+    assert sliced.occupancy() >= max(0.85, uniform_occ)
+    assert abs(sliced.padding_waste() - (1 - sliced.occupancy())) < 1e-12
+    widths = [c.shape[1] for c in sliced.slice_cols]
+    assert widths == sorted(widths, reverse=True)
+    # Degree sorting makes every width group a run of rows: no permutation
+    # after the groups' outputs.
+    assert len(sliced.groups) == len(set(widths))
+    assert sliced.rows_out is None
+
+
+def test_sliced_ell_respects_preordering(with_jax):
+    """An RCM-ordered operator keeps its ordering as the base of the
+    composition (no second RCM pass)."""
+    op, _ = tsp.rcm_reorder(tsp.random_fem_mesh(2, 200, device="cpu"))
+    sliced, perm = tsp.sliced_ell_reorder(op, slice_rows=25)
+    np.testing.assert_array_equal(perm, tsp.degree_sort_permutation(op))
+    jop, _ = jsp.rcm_reorder(jsp.random_fem_mesh(2, 200))
+    _, jperm = jsp.sliced_ell_reorder(jop, slice_rows=25)
+    np.testing.assert_array_equal(perm, jperm)
+    assert sliced.n == op.n
+
+
+def _per_slice(sliced, x):
+    """The JAX package's apply: one gather and rowsum a slice."""
+    return torch.cat([tref.ell_rowsum(v.to(x.dtype), x[..., c])
+                      for c, v in zip(sliced.slice_cols, sliced.slice_vals)],
+                     dim=-1)
+
+
+def test_sliced_apply_by_width_groups_bitwise():
+    """The width-grouped apply is bitwise the per-slice loop, for one
+    vector and a slab, in row order and with interleaved widths (the
+    output permutation); its solve is bitwise that of the permuted
+    padded-ELL operator (a padded slot adds an exact zero); the fused path
+    refuses it, as in the JAX package."""
+    rng = np.random.default_rng(21)
+    op = tsp.random_fem_icesheet(48, 10, 6, 4, device="cpu")
+    sliced, perm = tsp.sliced_ell_reorder(op, slice_rows=16)
+    order = [2, 0, 5, 1] + list(range(6, len(sliced.slice_cols))) + [3, 4]
+    mixed = tsp.SlicedEllOp(
+        slice_rows=16, slice_cols=tuple(sliced.slice_cols[s] for s in order),
+        slice_vals=tuple(sliced.slice_vals[s] for s in order), device="cpu")
+    assert sliced.rows_out is None and mixed.rows_out is not None
+    for sl in (sliced, mixed):
+        for x in (torch.tensor(rng.standard_normal(op.n)),
+                  torch.tensor(rng.standard_normal((3, op.n)))):
+            assert torch.equal(sl.apply(x), _per_slice(sl, x))
+        np.testing.assert_array_equal(sl.diag().numpy(),
+                                      np.diag(sl.to_dense()))
+    base = tsp.rcm_reorder(op)[0]
+    pop = tsp.permute_spd(base, tsp.degree_sort_permutation(base))
+    b = torch.tensor(rng.standard_normal(op.n))
+    kw = dict(l=2, tol=1e-8, maxit=300)
+    runs = [tpc.solve(SolverOps.local(o, JacobiPrec.from_operator(o)), b,
+                      **kw) for o in (sliced, pop)]
+    assert bool(runs[0].converged) and int(runs[0].iters) > 0
+    assert torch.equal(runs[0].res_history, runs[1].res_history)
+    assert torch.equal(runs[0].x, runs[1].x)
+    with pytest.raises(ValueError, match="fused_iter_factory"):
+        tpc.solve(SolverOps.local(sliced, JacobiPrec.from_operator(sliced)),
+                  b, 2, fused_iteration=True)
+
+
+@pytest.mark.cuda
+def test_sliced_apply_on_card(cuda_device):
+    """The sliced apply on the card equals its CPU result within the ELL
+    tolerance (per row 1e-13 of sum |A||x|), for one vector and a slab."""
+    op = tsp.random_fem_icesheet(48, 10, 6, 4, device="cpu")
+    sliced, _ = tsp.sliced_ell_reorder(op, slice_rows=64)
+    card = tsp.SlicedEllOp(sliced.slice_rows, sliced.slice_cols,
+                           sliced.slice_vals, device=cuda_device)
+    rng = np.random.default_rng(8)
+    for shape in ((op.n,), (4, op.n)):
+        x = torch.tensor(rng.standard_normal(shape))
+        scale = x.abs() @ torch.as_tensor(np.abs(sliced.to_dense())).T
+        diff = (card.apply(x.to(cuda_device)).cpu() - sliced.apply(x)).abs()
+        assert bool((diff <= RTOL * scale + 1e-300).all())
