@@ -137,6 +137,18 @@ Phases, each printed as one JSON line; every phase raises on failure:
    and timed beside ``ell_spmv`` and its bytes bound, and an unfused
    p(2)-CG + Jacobi solve of the permuted system.
 
+20. the measurement layer (``overlap_phase``): overlap reports read from
+   the traced schedule at laplace2d 2048^2 (p(l)-CG fused at l in {1, 2,
+   3, 9}, unfused through ``stencil2d5``, with a ring, governed, on the
+   ladder oracle, a slab of 8; classic CG and p-CG), each with l chains
+   in flight (1 for the baselines) and one start a window; a fused
+   p(2)-CG window of 64 under ``torch.profiler``: the profile's events and
+   chains the recorder's, the history bitwise the untraced window's, each
+   chain's hiding interval and busy device µs, classic CG's beside it;
+   the roofline of one fused iteration; ``measured_runner`` at l in {1,
+   2, 3, 4} and ``autotune_depth`` on the H100 profile recalibrated from
+   this run (its table on stderr).
+
 Every kernel row of phases 8 and 9 carries its device time (profiler)
 beside its event time.
 
@@ -2580,6 +2592,260 @@ def sliced_ell_phase(gpu, iop, ib, ice_kw, ice_main, ell_device_ms) -> None:
         raise AssertionError("sliced ELL phase failed")
 
 
+# --------------------------------------------------------------------------
+# Phase 20 (overlap): the measurement layer, on one card.
+# --------------------------------------------------------------------------
+
+def overlap_phase(gpu, lap, op, prec, b, sig, iop, ell_device_ms) -> dict:
+    """The measurement layer at ``laplace2d`` 2048^2, Jacobi, ``main_solve``'s
+    shifts: overlap reports from the traced schedule (p(l)-CG fused at l in
+    {1, 2, 3, 9} and unfused at 2, with a 256-row ring, governed, on the
+    ladder oracle over 4 virtual shards, a slab of 8, classic CG and p-CG),
+    each held to ``max_in_flight >= l`` (1 for the baselines) and one start
+    a window; a fused p(2)-CG window of 64 iterations under
+    ``torch.profiler``, its events and chains equal the recorder's, its
+    history bitwise the untraced window's, each chain's hiding interval and
+    busy device µs, the same for classic CG; the roofline of one fused
+    iteration from its counted FLOPs and bytes; ``measured_runner`` at l in
+    {1, 2, 3, 4}, ``unroll=16``, ``recalibrate_profile(H100, ...)`` from this
+    run's numbers and ``autotune_depth``'s table.  Returns the phase's
+    launch counts."""
+    import statistics
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core.chebyshev import shifts_for_operator
+    from repro_torch.kernels import _build, fused_iter as fi
+    from repro_torch.kernels.ops import fused_iteration_factory
+    from repro_torch.launch import autotune as at
+    from repro_torch.launch.timing_model import H100
+    from repro_torch.linalg import Stencil2D5
+    from repro_torch.obs.timeline import schedule_track
+    from repro_torch.parallel.backends import LocalBackend
+    from repro_torch.stability import GovernorConfig
+    from repro_torch.utils import trace as T
+    from repro_torch.utils.roofline import HW_H100, count_cost, roofline_terms
+
+    t_phase = time.perf_counter()
+    _build.reset_launches()
+    be = LocalBackend()
+    shifts = {2: sig}
+
+    def sig_of(l):
+        if l not in shifts:
+            shifts[l] = shifts_for_operator(op, l, prec=prec)
+        return shifts[l]
+
+    kop = Stencil2D5(lap.nx, lap.ny, use_kernel=True)
+    failed = []
+
+    def summary(name, rep, want_l, starts=1):
+        ok = (rep.max_in_flight >= want_l
+              and rep.starts_per_window == {k: starts
+                                            for k in range(rep.window)})
+        if rep.n_reduce_hops:
+            ok = ok and rep.staged_starts_per_window == {
+                k: 1 for k in range(rep.window)}
+        if not ok:
+            failed.append(name)
+        return {"l": rep.l, "window": rep.window,
+                "max_in_flight": rep.max_in_flight,
+                "starts_per_window": sorted(set(
+                    rep.starts_per_window.values())),
+                "n_collectives": rep.n_collectives,
+                "payload_bytes": rep.collective_bytes,
+                "hops_per_window": rep.reduce_hops_per_window or None,
+                "hops_in_flight": rep.hops_in_flight, "ok": ok}
+
+    # ---- reports from the traced schedule ---------------------------------
+    t0 = time.perf_counter()
+    reports = {}
+    for l in (1, 2, 3, 9):
+        reports[f"fused_l{l}"] = summary(f"fused_l{l}", T.plcg_overlap_report(
+            be, op, b, l, sigmas=sig_of(l), prec=prec, fused_iteration=True),
+            l)
+    reports["unfused_l2"] = summary("unfused_l2", T.plcg_overlap_report(
+        be, kop, b, 2, sigmas=sig, prec=prec), 2)
+    reports["ring_l2"] = summary("ring_l2", T.plcg_overlap_report(
+        be, op, b, 2, sigmas=sig, prec=prec, fused_iteration=True,
+        telemetry_cap=256), 2)
+    reports["governed_l2"] = summary("governed_l2", T.plcg_overlap_report(
+        be, op, b, 2, sigmas=sig, prec=prec, fused_iteration=True,
+        recurrence="stable", governor=GovernorConfig()), 2)
+    reports["ladder_oracle_l2"] = summary(
+        "ladder_oracle_l2", T.plcg_overlap_report(
+            LocalBackend(reduction="staged", virtual_shards=4), op, b, 2,
+            sigmas=sig, prec=prec, fused_iteration=True), 2)
+    B = torch.stack([b] + [torch.roll(b, 7919 * j) for j in range(1, 8)])
+    reports["slab8_l2"] = summary("slab8_l2", T.batched_plcg_overlap_report(
+        be, op, B, 2, sigmas=sig, prec=prec, fused_iteration=True), 2)
+    del B
+    reports["classic_cg"] = summary("classic_cg", T.baseline_overlap_report(
+        be, kop, b, "cg", prec=prec), 1, starts=2)
+    reports["pcg"] = summary("pcg", T.baseline_overlap_report(
+        be, kop, b, "pcg", prec=prec), 1)
+    torch.cuda.empty_cache()
+    reports_s = time.perf_counter() - t0
+
+    # ---- the profiled window ----------------------------------------------
+    def profiled(run):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            out = run()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        return out, prof, wall
+
+    window = 64
+    T.plcg_window(be.make_ops(op, prec), b, 2, 8, sigmas=sig,
+                  fused_iteration=True)                 # warm-up
+    rec = T.ScheduleRecorder(depth=2)
+    st_t, prof, wall = profiled(lambda: T.plcg_window(
+        T.traced_ops(be.make_ops(op, prec), rec), b, 2, window, rec,
+        sigmas=sig, fused_iteration=True))
+    st_p = T.plcg_window(be.make_ops(op, prec), b, 2, window, sigmas=sig,
+                         fused_iteration=True)
+    bitwise = bool(torch.equal(st_t.hist, st_p.hist)
+                   and torch.equal(st_t.cyc.S, st_p.cyc.S))
+    del st_t, st_p
+    trace = T.chrome_trace(prof)
+    got = T.events_from_profile(trace)
+    rep = T.analyze_overlap(rec.events, 2, window)
+    rep_p = T.analyze_overlap(got, 2, window)
+    same_events = ([(e.kind, e.window, e.hop) for e in got]
+                   == [(e.kind, e.window, e.hop) for e in rec.events])
+    same_chains = rep_p.chains == rep.chains
+    ov = T.device_overlap(rep, trace)
+    # The same chains drawn in device µs: each span is a hiding interval.
+    timed = T.device_time_report(rep, trace)
+    spans = [e["dur"] for e in schedule_track(timed, units="device µs")
+             .events if e.get("cat") == "reduction"]
+    hides = {c.window: c.hide_us for c in ov.chains}
+    track_ok = len(spans) == len(rep.chains) and all(
+        abs((w - s_) - hides[k]) <= 1e-6 * max(1.0, hides[k])
+        for k, s_, w in timed.chains if w is not None)
+    kernels = T.device_kernels(trace)
+    busy_us = sum(k["dur"] for k in kernels)
+    sk = [k["dur"] for k in kernels if "fused_iter_kernel" in k["name"]]
+    sp = [k["dur"] for k in kernels if "sum_partials" in k["name"]]
+    plcg_timing = {"iterations": window, "wall_ms_per_iter":
+                   1e3 * wall / window,
+                   "device_us_per_iter": busy_us / window,
+                   "kernels_per_iter": len(kernels) / window,
+                   "superkernel_us": statistics.median(sk) if sk else None,
+                   "sum_partials_us": statistics.median(sp) if sp else None,
+                   "device_busy_share": busy_us * 1e-6 / wall}
+    del prof, trace
+
+    crec = T.ScheduleRecorder(depth=0)
+    _, cprof, cwall = profiled(lambda: T.baseline_window(
+        T.traced_ops(be.make_ops(kop, prec), crec), b, "cg", window, crec))
+    ctrace = T.chrome_trace(cprof)
+    crep = T.analyze_overlap(crec.events, 0, window)
+    cov = T.device_overlap(crep, ctrace)
+    cg_same = T.analyze_overlap(T.events_from_profile(ctrace), 0,
+                                window).chains == crep.chains
+    del cprof, ctrace
+
+    # ---- the roofline of one fused p(2)-CG iteration ------------------------
+    layout = fi.SlabLayout(l=2, RB=3)
+    fiter = fused_iteration_factory(op, prec)(layout)
+    host = fi.host_idx(layout, 3 * 2 + 3)
+    idx = torch.tensor(host, dtype=torch.int32, device=b.device)
+    IS = fi.scal_layout(2)
+    scal = torch.full((IS["size"],), 0.5, dtype=torch.float64,
+                      device=b.device)
+    S = torch.randn(layout.nv, op.n, dtype=torch.float64, device=b.device,
+                    generator=torch.Generator(b.device).manual_seed(20))
+    _, counted = count_cost(fiter.plain, S, idx, scal)
+    del S
+    nbytes = at.measured_iteration_bytes(op, 2, prec, fused=True)
+    terms = roofline_terms({"flops": counted["flops"],
+                            "bytes accessed": nbytes}, None, 1, HW_H100)
+    sk_s = plcg_timing["superkernel_us"] * 1e-6
+    roofline = {"flops": counted["flops"], "bytes": nbytes,
+                "plain_vector_phase_bytes": counted["bytes accessed"],
+                "t_compute_us": terms.t_compute * 1e6,
+                "t_memory_us": terms.t_memory * 1e6,
+                "dominant": terms.dominant,
+                "superkernel_device_us": sk_s * 1e6,
+                "superkernel_share_of_bound": terms.t_bound / sk_s,
+                "iteration_device_us": plcg_timing["device_us_per_iter"],
+                "iteration_share_of_bound":
+                    terms.t_bound * 1e6 / plcg_timing["device_us_per_iter"],
+                "iteration_wall_share_of_bound":
+                    terms.t_bound * 1e3 / plcg_timing["wall_ms_per_iter"]}
+
+    # ---- the autotuner ----------------------------------------------------
+    t0 = time.perf_counter()
+    measure = at.measured_runner(be, op, b, sigmas_for=sig_of, prec=prec,
+                                 iters=(24, 72), repeats=2,
+                                 plcg_kwargs={"fused_iteration": True})
+    recal = at.recalibrate_profile(
+        H100,
+        iter_payload={"device": b.device.type, "kernel": "fused_iter",
+                      "bytes": nbytes, "seconds": sk_s},
+        spmv_payload={"device": b.device.type, "kernel": "ell_spmv",
+                      "nnz": int(iop.nnz), "seconds": ell_device_ms * 1e-3},
+        reduce_payload={"device": b.device.type, "kernel": "sum_partials",
+                        "payload_bytes": 5 * 8, "devices": 1,
+                        "allreduce_s": plcg_timing["sum_partials_us"] * 1e-6})
+    tuned = at.autotune_depth(
+        n=op.n, p=1, hw=recal, ls=(1, 2, 3, 4), unrolls=(16,),
+        measure=measure, iteration_bytes=lambda l: at.measured_iteration_bytes(
+            op, l, prec, fused=True))
+    autotune_s = time.perf_counter() - t0
+    print(tuned.table(), file=sys.stderr, flush=True)
+    launches = dict(_build.LAUNCHES)
+
+    out = {"phase": "overlap", "gpu": gpu, "problem": lap.name, "n": op.n,
+           "reports": reports, "reports_s": reports_s,
+           "profiled_plcg_l2": {
+               "events_equal_recorder": same_events,
+               "chains_equal_recorder": same_chains,
+               "history_bitwise_untraced": bitwise,
+               "device_time_track_spans": len(spans),
+               "device_time_track_equals_hiding": track_ok,
+               "max_in_flight": rep.max_in_flight, **plcg_timing,
+               **ov.summary()},
+           "profiled_classic_cg": {
+               "chains_equal_recorder": cg_same,
+               "max_in_flight": crep.max_in_flight,
+               "wall_ms_per_iter": 1e3 * cwall / window, **cov.summary()},
+           "nccl_overlap": "not measured: no NCCL group in this process "
+                           "(PERF.md section 7, the multi-card question)",
+           "roofline": roofline,
+           "recalibrated": {"name": recal.name, "mem_bw": recal.mem_bw,
+                            "flop_rate": recal.flop_rate,
+                            "alpha": recal.alpha},
+           "autotune": {"best": {"method": tuned.best.method,
+                                 "l": tuned.best.l,
+                                 "unroll": tuned.best.unroll},
+                        "candidates": [
+                            {"method": c.method, "l": c.l,
+                             "unroll": c.unroll, "model_ms": c.model_s * 1e3,
+                             "measured_ms": None if c.measured_s is None
+                             else c.measured_s * 1e3}
+                            for c in tuned.candidates],
+                        "seconds": autotune_s},
+           "launches": launches,
+           "seconds": time.perf_counter() - t_phase}
+    emit({"overlap": out})
+    if failed or not (same_events and same_chains and bitwise and cg_same
+                      and track_ok
+                      and rep.max_in_flight >= 2
+                      and crep.max_in_flight == 1
+                      and ov.summary()["chains"] == window - 2
+                      and launches.get("fused_iter", 0) > 0
+                      and launches.get("fused_iter_runtime_l", 0) > 0
+                      and launches.get("stencil2d5", 0) > 0):
+        raise AssertionError(f"overlap phase failed: {failed}")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -3167,6 +3433,10 @@ def main() -> int:
     sliced_ell_phase(gpu, iop, ib, ice_kw, ice_main,
                      timings["ell_spmv"]["device_ms"])
 
+    # ---- 20. the measurement layer: overlap, roofline, autotuner -----------
+    overlap_launches = overlap_phase(gpu, lap, op, prec, b, sig, iop,
+                                     timings["ell_spmv"]["device_ms"])
+
     # ---- contract lines --------------------------------------------------
     src_dir = "src/repro_torch/kernels/csrc/"
     kernels = []
@@ -3218,7 +3488,8 @@ def main() -> int:
             "launches_baselines": base_launches.get(name, 0),
             "launches_ranks": wire_launches.get(name, 0),
             "launches_stability": stab_launches.get(name, 0),
-            "launches_checkpoint": ckpt_launches.get(name, 0)})
+            "launches_checkpoint": ckpt_launches.get(name, 0),
+            "launches_overlap": overlap_launches.get(name, 0)})
     for k in kernels:
         if k["launches"] == 0:
             raise AssertionError(f"{k['name']} was never launched on its path")

@@ -18,6 +18,17 @@ from typing import Callable, NamedTuple
 
 import torch
 
+# Tags of the reduction issue and consumption sites, the halo exchange and
+# the staged ladder's hops (the JAX package's ``core/types.py`` names).
+# The production ``SolverOps`` carries none of them: only the overlap
+# tracer's wrapper (``repro_torch.utils.trace.traced_ops``) names its
+# ``torch.profiler.record_function`` ranges and schedule events by them,
+# so a solve's arithmetic and host time stay as they are.
+GLRED_START_TAG = "glred_start"
+GLRED_WAIT_TAG = "glred_wait"
+HALO_TAG = "halo_xchg"
+REDUCE_TAG = "glred_hop"     # hop k of a staged dot block: f"{REDUCE_TAG}{k}"
+
 
 def dot_block_rows(mat: torch.Tensor, vec: torch.Tensor) -> torch.Tensor:
     """The fused dot block (K, N) x (N,) -> (K,) as an elementwise product

@@ -14,9 +14,8 @@ same snapshot.  :class:`Histogram` is a bounded reservoir whose
 Each ``SolverService`` creates its own registry, so two services never
 share counters.  The JAX package's gauges and text exporters are not
 ported (nothing in the port reads them); its timelines are in
-``repro_torch.obs.timeline``, except the two built on XLA's HLO
-(``hlo_schedule_track``, ``solve_timeline``), which wait for a profiler
-trace (ROADMAP.md, queue 1 item 7).
+``repro_torch.obs.timeline`` (the HLO schedule track read from the port's
+own schedule, ``schedule_track``).
 """
 
 from __future__ import annotations

@@ -10,13 +10,16 @@ Every process of the trace is labelled with its time base:
   a profiler trace of the same run shows the same regions; wrap a
   ``torch.cuda.synchronize()`` inside the block when the span should
   cover the device's work, not only its enqueue;
+* the schedule track (``schedule_track``, the JAX package's
+  ``hlo_schedule_track``) is in host issue order of the traced
+  ``SolverOps`` calls (``repro_torch.utils.trace``), not time: it shows
+  what overlaps what, never how long; from a profiled report its units
+  are device µs;
 * the telemetry track (``telemetry_track``) is in solver iterations;
 * replay tracks (``replay_timeline``) are virtual-clock arithmetic:
   exact, deterministic, not wall time.
 
-The JAX package's HLO schedule track (``hlo_schedule_track``) and
-``solve_timeline`` read XLA's compiled schedule; they wait for a
-profiler-trace counterpart (ROADMAP.md, queue 1 item 7).
+``solve_timeline`` merges the first three for one instrumented solve.
 """
 
 from __future__ import annotations
@@ -31,13 +34,15 @@ import torch
 from repro_torch.core.types import TelemetrySlab
 
 # Process ids (one per time base) for the merged trace, the JAX package's
-# numbers (its pid 2, the HLO schedule track, is not ported).
+# numbers.
 PID_HOST = 1        # measured host wall-clock (microseconds)
+PID_SCHEDULE = 2    # schedule positions (host issue order)
 PID_TELEMETRY = 3   # solver iterations (index)
 PID_REPLAY = 4      # virtual-clock replay (microseconds of virtual time)
 
 _PROCESS_NAMES = {
     PID_HOST: "host phases [measured wall-clock]",
+    PID_SCHEDULE: "solver schedule [host issue order, NOT time]",
     PID_TELEMETRY: "solver telemetry [iteration index, NOT time]",
     PID_REPLAY: "serve replay [virtual clock]",
 }
@@ -142,6 +147,63 @@ class Timeline:
 
 # ---------------------------------------------------------------- tracks --
 
+# Thread ids inside the schedule process.
+TID_REDUCTIONS = 1
+TID_SPMV = 2
+TID_HALO = 3
+TID_LADDER = 4
+
+
+def schedule_track(report, units: str | None = None) -> Timeline:
+    """The overlap track of one ``utils.trace.OverlapReport``, in its
+    positions (host issue order of the traced ``SolverOps`` calls): one
+    span a reduction chain, from its start to its wait (an unconsumed
+    chain runs to the last event), one span a window's vector phase
+    (between consecutive starts), and an instant for every halo exchange
+    and ladder hop.  The spans, instants, thread names and
+    ``meta["hlo_schedule"]`` keys of the JAX package's
+    ``hlo_schedule_track``; ``units`` overrides the positions' name (a
+    report whose positions are device µs)."""
+    tl = Timeline()
+    tl.name_thread(PID_SCHEDULE, TID_REDUCTIONS, "reduction windows")
+    tl.name_thread(PID_SCHEDULE, TID_SPMV, "vector phase / SPMV")
+    tl.name_thread(PID_SCHEDULE, TID_HALO, "halo exchange")
+    tl.name_thread(PID_SCHEDULE, TID_LADDER, "staged ladder hops")
+    # add_span multiplies by 1e6 (seconds to µs); position tracks divide
+    # first, so the exported ts is the position.
+    u = 1e-6
+    end = max((e.pos for e in report.events), default=0) + 1
+    for k, spos, wpos in report.chains:
+        tl.add_span(f"glred chain {k}", ts_s=spos * u,
+                    dur_s=((wpos if wpos is not None else end) - spos) * u,
+                    pid=PID_SCHEDULE, tid=TID_REDUCTIONS, cat="reduction",
+                    args={"window": k, "consumed": wpos is not None})
+    starts = sorted((e.pos, e.window) for e in report.events
+                    if e.kind == "start")
+    for j, (pos, k) in enumerate(starts):
+        nxt = starts[j + 1][0] if j + 1 < len(starts) else end
+        tl.add_span(f"vector phase {k}", ts_s=pos * u, dur_s=(nxt - pos) * u,
+                    pid=PID_SCHEDULE, tid=TID_SPMV, cat="vector",
+                    args={"window": k})
+    for e in report.events:
+        if e.kind == "halo":
+            tl.instant("halo permute", ts_s=e.pos * u, pid=PID_SCHEDULE,
+                       tid=TID_HALO, cat="halo", args={"window": e.window})
+        elif e.kind == "hop":
+            tl.instant(f"hop {e.hop}", ts_s=e.pos * u, pid=PID_SCHEDULE,
+                       tid=TID_LADDER, cat="hop",
+                       args={"window": e.window, "hop": e.hop})
+    tl.meta["hlo_schedule"] = {
+        "units": units or ("host issue order of the traced SolverOps "
+                           "calls, NOT time"),
+        "l": report.l, "window": report.window,
+        "max_in_flight": report.max_in_flight,
+        "halos_in_flight": report.halos_in_flight,
+        "hops_in_flight": report.hops_in_flight,
+    }
+    return tl
+
+
 def telemetry_track(telemetry, l: int) -> Timeline:
     """Per-iteration counter rows decoded from one solve's telemetry ring
     (``SolveResult.telemetry``, a tensor or an array): residual norm,
@@ -186,6 +248,48 @@ def telemetry_track(telemetry, l: int) -> Timeline:
         "cap": ts.cap, "k": ts.k, "l": l,
     }
     return tl
+
+
+def solve_timeline(backend, op, b, l: int = 2, window: int | None = None,
+                   sigmas=None, prec=None, fused_iteration: bool = False,
+                   telemetry_cap: int = 256, **solver_kwargs):
+    """Measured and schedule timeline of one instrumented p(l)-CG solve:
+    ``backend.solve(..., telemetry_cap=...)`` twice on pid 1 (the first
+    call, which builds the card's kernels, and the steady state, each
+    span closed after ``torch.cuda.synchronize()`` on a card), the
+    schedule track of the same configuration on pid 2
+    (``utils.trace.plcg_overlap_report``) and the telemetry track decoded
+    from the ring on pid 3.  Returns ``(timeline, result)``."""
+    from repro_torch.utils.trace import plcg_overlap_report
+
+    def sync(res):
+        if res.x.device.type == "cuda":
+            torch.cuda.synchronize(res.x.device)
+        return res
+
+    tl = Timeline()
+    tl.name_thread(PID_HOST, 1, "solve phases")
+    kw = dict(solver_kwargs, l=l, sigmas=sigmas,
+              telemetry_cap=telemetry_cap,
+              fused_iteration=fused_iteration)
+    with tl.span("solve[first call: kernel build + run]"):
+        res = sync(backend.solve(op, b, method="plcg", prec=prec, **kw))
+    with tl.span("solve[steady-state]"):
+        res = sync(backend.solve(op, b, method="plcg", prec=prec, **kw))
+    with tl.span("trace[traced window + schedule analysis]"):
+        report = plcg_overlap_report(
+            backend, op, b, l=l, window=window, sigmas=sigmas, prec=prec,
+            fused_iteration=fused_iteration, telemetry_cap=telemetry_cap,
+            recurrence=solver_kwargs.get("recurrence", "ghysels"),
+            governor=solver_kwargs.get("governor"))
+    tl.merge(schedule_track(report))
+    if res.telemetry is not None:
+        tl.merge(telemetry_track(res.telemetry, l=l))
+    tl.meta["solver"] = {"method": "plcg", "l": l, "n": int(op.n),
+                         "fused_iteration": fused_iteration,
+                         "telemetry_cap": telemetry_cap,
+                         "backend": type(backend).name}
+    return tl, res
 
 
 def replay_timeline(svc, rep=None) -> Timeline:

@@ -34,6 +34,16 @@ class ReductionBackend(abc.ABC):
         """Solve A x = b with the chosen CG variant on this substrate;
         ``solver_kwargs`` go to the solver (l, tol, maxit, sigmas, ...)."""
 
+    def make_solver(self, op, method: str = "plcg", prec=None,
+                    **solver_kwargs):
+        """A reusable solver ``b -> SolveResult`` with ``method``, ``prec``
+        and ``solver_kwargs`` bound: what the autotuner times
+        (``repro_torch.launch.autotune.measured_runner``).  PyTorch has no
+        jit cache to keep, so this default is ``solve`` with its arguments
+        bound; a backend whose per-solve set-up can be shared overrides
+        it."""
+        return lambda b: self.solve(op, b, method, prec, **solver_kwargs)
+
     def solve_batched(self, op, B, method: str = "plcg", prec=None,
                       **solver_kwargs) -> SolveResult:
         """Solve A X = B for every row of B (s, n) in lock step: one

@@ -58,6 +58,18 @@ class LocalBackend(ReductionBackend):
         b = as_rhs(b, self.device)
         return METHODS[method](self.make_ops(op, prec), b, solver_kwargs)
 
+    def make_solver(self, op, method: str = "plcg", prec=None,
+                    **solver_kwargs):
+        """``b -> SolveResult`` on ``SolverOps`` built once (the counterpart
+        of the JAX backend's jitted solver, with no jit cache to hold: each
+        call runs the host loop afresh, bitwise ``solve``)."""
+        if method not in METHODS:
+            raise ValueError(f"unknown method {method!r}; "
+                             f"available: {', '.join(METHODS)}")
+        ops = self.make_ops(op, prec)
+        return lambda b: METHODS[method](ops, as_rhs(b, self.device),
+                                         dict(solver_kwargs))
+
     # -------------------------------------------------- batched multi-RHS --
     def _slab_ops(self, op, prec) -> SolverOps:
         if self.reduction_cfg is not None:

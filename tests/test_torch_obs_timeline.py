@@ -3,8 +3,9 @@ the JAX package's: the exported catapult JSON is valid, the telemetry
 track of one ring is the JAX package's track of the same ring, event for
 event, and replay timelines are byte-deterministic.  Mirrors
 tests/test_obs_timeline.py's structure, replay-determinism and shed
-tests; its HLO-schedule tests wait for a profiler-trace counterpart
-(ROADMAP.md, queue 1 item 7).
+tests; its schedule-track tests on the port's own schedule: the port's
+``schedule_track`` of a report equals JAX's ``hlo_schedule_track`` of the
+same report, event for event, and ``solve_timeline`` merges pids 1-3.
 """
 
 import json
@@ -20,13 +21,17 @@ torch.set_num_threads(1)
 
 from repro.core.chebyshev import shifts_for_operator as jshifts  # noqa: E402
 from repro.linalg import Stencil2D5 as JStencil  # noqa: E402
+from repro.obs.timeline import hlo_schedule_track as jschedule_track  # noqa: E402
 from repro.obs.timeline import telemetry_track as jtelemetry_track  # noqa: E402
+from repro.utils import trace as jtrace  # noqa: E402
 from repro.parallel import get_backend as jget_backend  # noqa: E402
 from repro.stability import GovernorConfig as JGov  # noqa: E402
 from repro_torch import convert  # noqa: E402
 from repro_torch.core.types import TelemetrySlab  # noqa: E402
 from repro_torch.linalg import Stencil2D5  # noqa: E402
-from repro_torch.obs import Timeline, replay_timeline, telemetry_track  # noqa: E402
+from repro_torch.obs import (Timeline, replay_timeline, schedule_track,  # noqa: E402
+                             solve_timeline, telemetry_track)
+from repro_torch.obs.timeline import PID_SCHEDULE  # noqa: E402
 from repro_torch.parallel.backends import LocalBackend  # noqa: E402
 from repro_torch.serve import ConfigError, SolverService, VirtualClock  # noqa: E402
 from repro_torch.serve.replay import TrafficClass, poisson_trace, replay  # noqa: E402
@@ -96,6 +101,66 @@ def _replay_once():
     trace = poisson_trace(classes, rate_per_s=50.0, n_requests=10, seed=4)
     rep = replay(svc, trace, iter_time_s=1e-4, tick_overhead_s=1e-4)
     return svc, rep
+
+
+def _as_jax_report(rep):
+    """The port's report as the JAX package's ``OverlapReport`` (the same
+    fields, the events as JAX ``ChainEvent``s)."""
+    fields = {f.name: getattr(rep, f.name)
+              for f in jtrace.OverlapReport.__dataclass_fields__.values()}
+    fields["events"] = [jtrace.ChainEvent(e.kind, e.window, e.pos, e.opcode,
+                                          e.name, e.hop) for e in rep.events]
+    return jtrace.OverlapReport(**fields)
+
+
+@pytest.mark.parametrize("staged", [False, True])
+def test_schedule_track_equals_jax_on_the_same_report(staged):
+    """Event for event (name, ts, dur, pid, tid, args): chains, vector
+    phases and, on the ladder oracle, hop instants."""
+    from repro_torch.core.chebyshev import shifts_for_operator
+    from repro_torch.linalg import JacobiPrec
+    from repro_torch.utils.trace import plcg_overlap_report
+
+    op = Stencil2D5(16, 16, device="cpu")
+    prec = JacobiPrec.from_operator(op)
+    b = torch.tensor(np.random.default_rng(0).standard_normal(op.n))
+    be = (LocalBackend(device="cpu", reduction="staged", virtual_shards=4)
+          if staged else LocalBackend(device="cpu"))
+    rep = plcg_overlap_report(be, op, b, 2, window=5, prec=prec,
+                              sigmas=shifts_for_operator(op, 2, prec=prec))
+    got = schedule_track(rep)
+    want = jschedule_track(_as_jax_report(rep))
+    assert got.events == want.events
+    assert bool(staged) == any(e.get("cat") == "hop" for e in got.events)
+    meta = got.meta["hlo_schedule"]
+    assert {k: v for k, v in meta.items() if k != "units"} == \
+        {k: v for k, v in want.meta["hlo_schedule"].items() if k != "units"}
+    assert meta["units"].startswith("host issue order")
+    assert schedule_track(rep, units="device µs").meta["hlo_schedule"][
+        "units"] == "device µs"
+
+
+def test_solve_timeline_merges_host_schedule_and_telemetry(tmp_path):
+    from repro_torch.core.chebyshev import shifts_for_operator
+
+    op = Stencil2D5(16, 16, device="cpu")
+    b = torch.tensor(np.random.default_rng(3).standard_normal(op.n))
+    tl, res = solve_timeline(LocalBackend(device="cpu"), op, b, l=2,
+                             sigmas=shifts_for_operator(op, 2), tol=1e-10,
+                             maxit=400, telemetry_cap=128)
+    assert res.telemetry is not None and bool(res.converged)
+    doc = json.loads(tl.to_json())
+    evs = doc["traceEvents"]
+    assert {e["pid"] for e in evs} == {1, 2, 3}
+    assert sum(e.get("ph") == "X" and e["pid"] == 1 for e in evs) == 3
+    red = [e for e in evs if e["pid"] == PID_SCHEDULE
+           and e.get("cat") == "reduction"]
+    assert len(red) == 4                     # window l + 2
+    assert doc["metadata"]["hlo_schedule"]["max_in_flight"] == 2
+    assert doc["metadata"]["kernel_mode"] == "plain"
+    assert doc["metadata"]["solver"]["backend"] == "local"
+    assert any(e.get("ph") == "C" and e["pid"] == 3 for e in evs)
+    tl.save(str(tmp_path / "t.json"))
 
 
 def test_replay_timeline_deterministic(tmp_path):

@@ -69,7 +69,8 @@ OPS = ["stencil2d5", "stencil3d7", "stencil3d27", "diagonal"]
 
 
 def test_port_imports_neither_jax_nor_repro():
-    pat = re.compile(r"^\s*(import|from)\s+(jax|repro)(\.|\s|$)", re.M)
+    pat = re.compile(r"^\s*(import|from)\s+(jax|repro|benchmarks)(\.|\s|$)",
+                     re.M)
     files = [os.path.join(REPO, "chip_smoke.py")]
     for dirpath, _, names in os.walk(os.path.join(REPO, "src",
                                                   "repro_torch")):
