@@ -121,8 +121,9 @@ Phases, each printed as one JSON line; every phase raises on failure:
    sheets; ``SolverService`` with ``telemetry_cap``, each retired request
    carrying its ring.
 
-18. checkpoint and restore (``checkpoint_phase``): phase 3's solve through
-   ``CheckpointConfig(every=2000)``: the segmented oracle bitwise the plain
+18. checkpoint and restore (``checkpoint_phase``): phase 3's settings on
+   a 1024^2 grid (cut from 2048^2 to keep the script inside its limit)
+   through ``CheckpointConfig(every=2000)``: the segmented oracle bitwise the plain
    solve of its effective config (equal host syncs and launches); the
    same with snapshots (bitwise, two host reads a boundary, each snapshot
    timed: true residual, copy, hash, write); killed at its third
@@ -148,6 +149,23 @@ Phases, each printed as one JSON line; every phase raises on failure:
    the roofline of one fused iteration; ``measured_runner`` at l in {1,
    2, 3, 4} and ``autotune_depth`` on the H100 profile recalibrated from
    this run (its table on stderr).
+
+21. batched solves, the ring and the governor, and the service over
+   ranks (``ranks_slab_phase``): the superkernel's halo plug-ins in the
+   slab form (s = 8, l = 2, Jacobi) on 4 shards of laplace2d 2048^2, the
+   icesheet3d-stencil grid and icesheet3d, rows bitwise against the plain
+   version, timed beside 8 single-column launches; a world of one over
+   NCCL (phase 16's slab at ``main_solve``'s settings, column by column
+   bitwise phase 16's, column 0 ``main_solve``; phase 17's governed,
+   instrumented solve bitwise; phase 16's service of 16 requests
+   bitwise); four gloo ranks on the card (laplace2d slabs of 8, 200
+   updates, staged bitwise against the slab ``rank_oracle_ops`` and
+   monolithic within ORACLE_HIST, with the overlap report's counts on
+   every rank; an icesheet3d slab staged to convergence, bitwise; a
+   governed, instrumented icesheet3d solve, its ring and governor the
+   same on every rank and bitwise the oracle's; a service replay of 8
+   requests at 1024^2, the same sets on every rank and bitwise the
+   one-device staged-oracle service).
 
 Every kernel row of phases 8 and 9 carries its device time (profiler)
 beside its event time.
@@ -1478,6 +1496,10 @@ def distributed_phase(lap_op, lap_prec, lap_b, solve_kw, main, main_digest,
     return total
 
 
+# Results of the one-device paths that phase 21 holds its runs over ranks
+# against (digests of x, histories, rings; per request of the service).
+REFS: dict = {}
+
 SLAB_S = 8                      # batched_serve: the slab width
 SLAB_WIDE = 32                  # batched_serve: the wide ice-sheet slab
 SERVE_REQUESTS = 16             # batched_serve: requests served at 2048^2
@@ -1738,6 +1760,9 @@ def batched_serve_phase(dev, gpu, randn, phase_scal, lap, ice, op, prec, b,
     if rec["iters"][0] != main["iters"]:
         failed.append("column 0 vs main_solve")
     out["laplace2d"] = rec
+    REFS["slab_laplace2d"] = [(digest(r.x[c]), digest(r.res_history[c]))
+                              for c in range(SLAB_S)]
+    REFS["slab_laplace2d_ms_per_update"] = rec["ms_per_update"]
     del r
     prof_kw = dict(solve_kw, maxit=100, tol=1e-30)
     be.solve_batched(op, B, prec=prec, **prof_kw)
@@ -1829,6 +1854,8 @@ def batched_serve_phase(dev, gpu, randn, phase_scal, lap, ice, op, prec, b,
     if rep.n_converged != SERVE_REQUESTS or not max(rels) < 10 * TOL \
             or launches["stencil2d5_slab"] == 0:
         failed.append("serve")
+    REFS["serve_2048"] = {str(rid): [svc.results[rid].iters, digest(
+        torch.as_tensor(svc.results[rid].x))] for rid in range(len(trace))}
     del svc
 
     def kernel_cg(name, kop_, pop_, n, iters, key):
@@ -1905,7 +1932,9 @@ def batched_serve_phase(dev, gpu, randn, phase_scal, lap, ice, op, prec, b,
 # Phase 17 (stability): the telemetry ring, the governor, payload chaos and
 # the depth ladder.
 TEL_CAP = 512                   # stability: ring rows of the 2048^2 solves
-TURN_UPDATES = 2000             # stability: updates of each timed turn
+# stability: updates of each timed turn (2 000 until phase 21 came; cut
+# for the time limit, the turns' order and checks kept)
+TURN_UPDATES = 1000
 PROFILE_MAXIT = 100             # stability: updates of a profiled solve
 CHAOS_RECOVERY = dict(seed=7, payload_rel_amp=1e-5)    # the JAX bench's
 CHAOS_CATASTROPHIC = dict(seed=3, payload_rel_amp=0.3)  # the JAX bench's
@@ -2073,6 +2102,9 @@ def stability_phase(dev, gpu, op, prec, b, solve_kw, main, main_digest,
             "vector_phases": phases, "wall_s": wall,
             "ms_per_iter": 1e3 * wall / max(phases, 1),
             "host_syncs": r.host_syncs}
+        if name == "governed_clean":
+            REFS["governed_clean"] = [digest(t) for t in (
+                r.x, r.res_history, r.telemetry, r.governor)]
         del r
     g = out["governed_clean"]
     if not (g["converged"] and g["true_rel_residual"] < 10 * TOL
@@ -2250,13 +2282,19 @@ def stability_phase(dev, gpu, op, prec, b, solve_kw, main, main_digest,
 
 CKPT_EVERY = 2000           # laplace2d: a snapshot at least every 2 000
 CKPT_EVERY_ICE = 15         # updates; icesheet3d p-CG (~40 updates)
+# The grid of the five checkpointed laplace2d runs: main_solve's settings
+# on 1024^2, not 2048^2, to keep the script inside its time limit once
+# phase 21 ran (every check of the phase kept).
+CKPT_NX = 1024
 
 
 def checkpoint_phase(gpu, op, prec, b, solve_kw, main, iop, iprec, ib,
                      ice_kw) -> dict:
     """Checkpoint and restore through ``LocalBackend.solve(...,
-    checkpoint=CheckpointConfig(...))`` on laplace2d 2048^2 with
-    ``main_solve``'s settings (fused p(2)-CG, Jacobi, ``unroll=16``):
+    checkpoint=CheckpointConfig(...))`` on laplace2d at CKPT_NX^2 with
+    ``main_solve``'s settings (fused p(2)-CG, Jacobi, its shifts for this
+    grid, ``unroll=16``; ``op``, ``prec``, ``b`` and ``solve_kw`` are
+    ``main_solve``'s and give the grid's kind and settings):
 
     1. the oracle: the segmented solve with no directory, bitwise the
        plain solve of ``effective_kw`` (``replace_every=2000``) with equal
@@ -2292,8 +2330,19 @@ def checkpoint_phase(gpu, op, prec, b, solve_kw, main, iop, iprec, ib,
     from repro_torch.kernels import _build
     from repro_torch.parallel.backends import LocalBackend
 
+    import numpy as np
+
+    from repro_torch.core.chebyshev import shifts_for_operator
+    from repro_torch.linalg import JacobiPrec
+
     t_phase = time.perf_counter()
     be = LocalBackend()
+    op = type(op)(CKPT_NX, CKPT_NX)
+    prec = JacobiPrec.from_operator(op)
+    b = torch.tensor(np.random.default_rng(0).standard_normal(op.n),
+                     device=b.device)
+    solve_kw = dict(solve_kw, sigmas=shifts_for_operator(
+        op, solve_kw["l"], prec=prec))
     out = {"phase": "checkpoint", "gpu": gpu, "problem": "laplace2d",
            "n": op.n, "every": CKPT_EVERY}
     root = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
@@ -2422,9 +2471,9 @@ def checkpoint_phase(gpu, op, prec, b, solve_kw, main, iop, iprec, ib,
             "iters": int(r_r.iters), "restarts": int(r_r.restarts),
             "wall_s": k_rec["wall_s"] + r_rec["wall_s"],
             "superkernel_launches": kl + rl}
-        out["main_solve"] = {k: main[k] for k in
-                             ("iters", "restarts", "wall_s", "host_syncs",
-                              "vector_phases")}
+        out["main_solve_2048"] = {k: main[k] for k in
+                                  ("iters", "restarts", "wall_s",
+                                   "host_syncs", "vector_phases")}
         del r_r
 
         # ---- 5. typed refusals ----------------------------------------
@@ -2844,6 +2893,507 @@ def overlap_phase(gpu, lap, op, prec, b, sig, iop, ell_device_ms) -> dict:
                       and launches.get("stencil2d5", 0) > 0):
         raise AssertionError(f"overlap phase failed: {failed}")
     return launches
+
+
+# --------------------------------------------------------------------------
+# 21. Batched solves, the ring and governor, and the service over ranks.
+# --------------------------------------------------------------------------
+
+RANKS_SERVE_NX = 1024           # ranks_slab: the 4-rank service replay's grid
+RANKS_SERVE_REQUESTS = 8        # ranks_slab: its requests (one slab of 8)
+RANKS_SERVE_TOL = 1e-4          # ranks_slab: their tolerance (a check of
+# the ranks' coordination: classic CG takes two ladders an iteration over
+# the staged gloo wire, ~20 ms, so it runs to 1e-4, not TOL)
+RANKS_SHORT = 200               # ranks_slab: laplace2d slab updates, 4 ranks
+
+
+def halo_slab_checks(dev, randn, phase_scal, operators: dict,
+                     plan) -> tuple[dict, dict, dict]:
+    """The superkernel's halo plug-ins in the slab form (s = SLAB_S, l =
+    2, Jacobi, each column at its own cycle index) on each of the
+    N_SHARDS shards of every operator in ``operators``: one launch of the
+    slab against its plain version (rows bitwise, partials within
+    PARTIAL_BOUND of sum |m u|), the operands every column's halo from the
+    in-process halo of the whole slab's ring-top rows.  Then shard 1's
+    slab launch timed (events, profiler), its plain version, the SLAB_S
+    single-column launches it replaces, and its bound: every column's
+    rows and halo, the inverse diagonal and the ELL cols/vals once
+    (``fused_iter.min_bytes``) over PEAK_BYTES_PER_S.  Returns (launches,
+    errors, timings) keyed ``fused_iter_halo_slab`` (laplace2d) and
+    ``fused_iter_ell_halo_slab``."""
+    import torch
+
+    from repro_torch.kernels import _build, fused_iter as fi, ref
+    from repro_torch.linalg import JacobiPrec, SparseOp
+    from repro_torch.linalg.partition import halo_exchange
+    from repro_torch.parallel.distributed import (fused_spmv_local,
+                                                  halo_first_dim)
+
+    p, s = N_SHARDS, SLAB_S
+    layout = fi.SlabLayout(l=2, RB=3)
+    pos = fi.idx_layout(2)["z_top"]
+    hosts = [fi.host_idx(layout, i) for i in
+             [2 * layout.l + 3 + c for c in range(s - 1)] + [1]]
+    idx = torch.tensor(hosts, dtype=torch.int32, device=dev)
+    scal = torch.stack([phase_scal(2) for _ in range(s)])
+    out, errs, timings, failed = {}, {}, {}, []
+    _build.reset_launches()
+    for name, op in operators.items():
+        prec = JacobiPrec.from_operator(op)
+        nl = op.n // p
+        S = randn(s, layout.nv, op.n) * 1e-3
+        zt = fi.ring_top(S, idx, pos).reshape(s, p, nl)
+        if isinstance(op, SparseOp):
+            ext = halo_exchange(zt, plan.send_up, plan.send_dn)
+            locs = [{f: getattr(plan, f)[r] for f in
+                     ("cols", "vals", "send_up", "send_dn")}
+                    for r in range(p)]
+        else:
+            ext = halo_first_dim(zt, op.n // op.nx)
+            locs = [{} for _ in range(p)]
+        rows_err, part_err, fiters = 0.0, 0.0, []
+        for r in range(p):
+            e_r = ext[:, r].contiguous()
+            spmv = fused_spmv_local(op, locs[r], p, lambda z, e=e_r: e)
+            inv = prec.inv_diag[r * nl:(r + 1) * nl].contiguous()
+            f = fi.build_fused_iteration(layout, spmv, inv)
+            S_r = S[..., r * nl:(r + 1) * nl].contiguous()
+            S_p, _ = f.plain(S_r.clone(), idx, scal)
+            S_k, d_k = f(S_r.clone(), idx, scal)
+            torch.cuda.synchronize()
+            rows_err = max(rows_err, float((S_k - S_p).abs().max()))
+            for c in range(s):
+                _, mat, u = ref.fused_iter_unfused(
+                    S_r[c], idx[c], scal[c],
+                    lambda z, e=e_r[c]: spmv.ext_expr(e),
+                    lambda v: inv * v, layout)
+                d_p = (mat * u[None, :]).sum(dim=1)
+                scale = (mat.abs() * u.abs()[None, :]).sum(dim=1)
+                part_err = max(part_err, float(((d_k[c] - d_p).abs()
+                                                / scale).max()))
+            fiters.append((f, S_r, inv, e_r))
+            del S_p, S_k
+        key = "fused_iter_ell_halo_slab" if isinstance(op, SparseOp) \
+            else "fused_iter_halo_slab"
+        errs[name] = rows_err
+        out[name] = {"rows_max_abs_diff": rows_err,
+                     "partials_max_diff_over_abs_sum": part_err,
+                     "launch_key": key}
+        if rows_err != 0 or not part_err <= PARTIAL_BOUND:
+            failed.append(name)
+        f, S_r, inv, e_r = fiters[1]
+        halo = f.spmv.ext_len - nl
+        shared = sum(t.numel() * t.element_size()
+                     for t in (f.spmv.cols, f.spmv.vals) if t is not None)
+        nbytes = sum(fi.min_bytes(layout, h, nl, has_prec=False,
+                                  has_diag=False, operand_bytes=8 * halo)
+                     for h in hosts) + 8 * nl + shared
+
+        # the s single-column launches the slab replaces, each reading its
+        # column's operand
+        ones = [fi.build_fused_iteration(layout, fused_spmv_local(
+            op, locs[1], p, lambda z, e=e_r[c]: e), inv) for c in range(s)]
+
+        def singles():
+            for c in range(s):
+                ones[c](S_r[c], idx[c], scal[c])
+
+        t = {"ms": cuda_ms(lambda: f(S_r, idx, scal)),
+             "device_ms": device_ms(lambda: f(S_r, idx, scal)),
+             "single_columns_ms": cuda_ms(singles, reps=5),
+             "single_columns_device_ms": device_ms(singles, reps=5),
+             "plain_ms": cuda_ms(lambda: f.plain(S_r, idx, scal), reps=3),
+             "library_ms": None, "s": s, "shard": 1, "own_rows": nl,
+             "halo_rows": halo, **bound_fields(nbytes, 0.0)}
+        t["share_of_bound"] = None if t["device_ms"] is None else \
+            t["bound_ms"] / t["device_ms"]
+        timings[name] = t
+        del S, fiters, f, S_r, ext, zt, ones
+        torch.cuda.empty_cache()
+    launches = dict(_build.LAUNCHES)
+    emit({"phase": "halo_slab_vs_plain", "s": s, "l": 2, "n_shards": p,
+          "plugins": out, "partials_bound": PARTIAL_BOUND,
+          "timings": timings, "launches": launches})
+    if failed:
+        raise AssertionError(f"halo slab plug-ins differ from their plain "
+                             f"versions: {failed}")
+    return launches, errs, timings
+
+
+def ranks_slab_phase(dev, gpu, randn, phase_scal, lap, ice, op, prec, b,
+                     solve_kw, main, main_digest, iop, iprec, ib, ice_kw,
+                     plan) -> tuple[dict, dict, dict]:
+    """Phase 21, batched solves, the telemetry ring and the governor, and
+    the service over ranks (``MultiprocessBackend``, ranks started by
+    ``launch_fabric``):
+
+    1. the halo plug-ins' slab form against its plain version on 4
+       shards of laplace2d 2048^2, the icesheet3d-stencil grid and
+       icesheet3d (``halo_slab_checks``);
+    2. a world of one over NCCL: ``solve_batched`` of phase 16's slab of
+       SLAB_S at ``main_solve``'s settings, column by column bitwise phase
+       16's one-device slab (column 0 ``main_solve``); phase 17's
+       governed, instrumented solve (patience GOV_PATIENCE), bitwise its
+       ring, governor vector, history and x; phase 16's service of
+       SERVE_REQUESTS requests (classic CG, 2048^2), each request's
+       iterations and solution bitwise;
+    3. four gloo ranks sharing the card: laplace2d slabs of SLAB_S for
+       RANKS_SHORT updates, staged (2 stages) bitwise against the slab
+       ``rank_oracle_ops`` (4 virtual shards) and monolithic within
+       ORACLE_HIST of it, each with ``batched_plcg_overlap_report``'s
+       counts on every rank; an icesheet3d slab staged to convergence,
+       bitwise; a governed, instrumented (stable, ring of 256) icesheet3d
+       solve staged, its ring and governor vector the same on every rank
+       and bitwise the oracle's; a service replay of
+       RANKS_SERVE_REQUESTS requests at RANKS_SERVE_NX^2 (classic CG to
+       RANKS_SERVE_TOL, staged, virtual clock), every rank with the same admitted, shed and
+       finished sets and the solutions bitwise the one-device service's
+       on ``LocalBackend(reduction="staged", virtual_shards=4)``;
+    4. every fused run over 4 ranks launches the halo slab plug-in once a
+       slab iteration on every rank.
+
+    Returns (launches of the ranks' runs summed, errors, timings)."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from repro_torch.core import METHODS, batched
+    from repro_torch.linalg import Stencil2D5, Stencil3D7
+    from repro_torch.parallel.backends import LocalBackend
+    from repro_torch.parallel.distributed import rank_oracle_ops
+    from repro_torch.parallel.fabric import launch_fabric
+    from repro_torch.parallel.reduction import (StagedConfig,
+                                                reduction_wire_bytes)
+    from repro_torch.parallel.worker import digest
+    from repro_torch.serve import (SolverService, TrafficClass, VirtualClock,
+                                   poisson_trace, replay)
+    from repro_torch.stability import GovernorConfig
+
+    t_phase = time.perf_counter()
+    out = {"phase": "ranks_slab", "gpu": gpu, "s": SLAB_S}
+    failed = []
+    launches, errs, timings = halo_slab_checks(dev, randn, phase_scal, {
+        "laplace2d": Stencil2D5(lap.nx, lap.ny),
+        "icesheet3d-stencil": Stencil3D7(ice.nx, ice.ny, ice.nz,
+                                         eps_z=ice.eps_z),
+        "icesheet3d": iop}, plan)
+    launches = {}               # the rank runs' launches (the main path)
+
+    tmp = tempfile.mkdtemp(prefix="chip-smoke-ranks-slab-")
+    rng = np.random.default_rng(BATCH_SEED)
+    B = np.empty((SLAB_S, op.n))
+    B[0] = b.cpu().numpy()
+    B[1:] = rng.standard_normal((SLAB_S - 1, op.n))    # phase 16's slab
+    strace = poisson_trace([TrafficClass("laplace2d", op.n, tol=TOL)],
+                           rate_per_s=1000.0, n_requests=SERVE_REQUESTS,
+                           seed=BATCH_SEED)            # phase 16's trace
+    irng = np.random.default_rng(BATCH_SEED + 21)
+    IB = np.empty((SLAB_S, iop.n))
+    IB[0] = ib.cpu().numpy()
+    IB[1:] = irng.standard_normal((SLAB_S - 1, iop.n))
+    small = Stencil2D5(RANKS_SERVE_NX, RANKS_SERVE_NX)
+    rtrace = poisson_trace([TrafficClass("op", small.n,
+                                         tol=RANKS_SERVE_TOL)],
+                           rate_per_s=1000.0,
+                           n_requests=RANKS_SERVE_REQUESTS,
+                           seed=BATCH_SEED + 21)
+    files = {k: os.path.join(tmp, k + ".npz")
+             for k in ("lap", "ice", "srv16", "srv8", "small")}
+    np.savez(files["lap"], B=B, b=B[0], sig=solve_kw["sigmas"].cpu().numpy())
+    np.savez(files["ice"], B=IB, b=IB[0],
+             sig=ice_kw["sigmas"].cpu().numpy())
+    for key, tr in (("srv16", strace), ("srv8", rtrace)):
+        np.savez(files[key], t=np.array([a.t for a in tr]),
+                 b=np.stack([a.b for a in tr]),
+                 tol=np.array([a.tol for a in tr]),
+                 deadline=np.full(len(tr), -1.0))
+    np.savez(files["small"], kind="stencil2d5", nx=RANKS_SERVE_NX,
+             ny=RANKS_SERVE_NX)
+    lap_kw = {k: v for k, v in solve_kw.items() if k != "sigmas"}
+    ice_solver = {k: v for k, v in ice_kw.items() if k != "sigmas"}
+    gov_kw = dict(lap_kw, recurrence="stable",
+                  governor={"patience": GOV_PATIENCE},
+                  telemetry_cap=GOV_RING)
+    ice_gov = dict(ice_solver, recurrence="stable", governor={},
+                   telemetry_cap=256)
+    short = dict(lap_kw, maxit=RANKS_SHORT, tol=1e-30)
+    window = {"l": lap.l, "window": 2 * lap.l + 4}
+
+    def task(kind, name, operator, npz, solver, red="monolithic",
+             key="B", **extra):
+        return dict({"kind": kind, "name": name, "operator": operator,
+                     "rhs": {"npz": files[npz], "key": key},
+                     "sigmas": {"npz": files[npz], "key": "sig"},
+                     "method": "plcg", "reduction": red, "stages": 2,
+                     "solver": solver}, **extra)
+
+    def serve_task(name, operator, trace, red, service):
+        return {"kind": "serve", "name": name, "operator": operator,
+                "trace": {"npz": files[trace]}, "reduction": red,
+                "stages": 2, "service": service,
+                "replay": {"iter_time_s": 1e-3, "tick_overhead_s": 1e-3}}
+
+    def run_group(tag, p, pg, tasks):
+        gdir = os.path.join(tmp, tag)
+        os.makedirs(gdir)
+        spec = os.path.join(gdir, "spec.json")
+        with open(spec, "w") as f:
+            json.dump({"backend": {"device": "cuda", "pg_backend": pg},
+                       "out_dir": gdir, "threads": 2, "tasks": tasks}, f)
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        launch_fabric(lambda master, k: [sys.executable, "-m",
+                                         "repro_torch.parallel.worker", spec],
+                      p, env=dict(os.environ,
+                                  PYTHONPATH=os.path.join(ROOT, "src")),
+                      cwd=ROOT, timeout_s=600, build_kernels=True)
+        seconds = time.perf_counter() - t0
+        got = {}
+        for t in tasks:
+            recs = []
+            for r in range(p):
+                with open(os.path.join(gdir,
+                                       f"{t['name']}.rank{r}.json")) as f:
+                    recs.append(json.load(f))
+            npz = os.path.join(gdir, t["name"] + ".npz")
+            got[t["name"]] = (recs, dict(np.load(npz)) if os.path.exists(npz)
+                              else {})
+            for rec in recs:
+                for k, v in rec.get("launches", {}).items():
+                    launches[k] = launches.get(k, 0) + v
+        return got, seconds
+
+    def agree(recs, *keys):
+        return all(len({json.dumps(r.get(k), sort_keys=True)
+                        for r in recs}) == 1 for k in keys)
+
+    def slab_rec(recs, key):
+        r0 = recs[0]
+        wc = r0["wire_counts"]
+        iters = r0["launches"].get(key, 0) or max(r0["iters_by_column"])
+        wall = max(r["wall_s"] for r in recs)
+        upd = sum(r0["iters_by_column"])
+        return {"world": r0["world"], "wire": r0["describe"],
+                "iters": r0["iters_by_column"], "converged": r0["converged"],
+                "slab_iterations": iters, "wall_s": wall,
+                "ms_per_slab_iteration": 1e3 * wall / max(iters, 1),
+                "ms_per_update": 1e3 * wall / max(upd, 1),
+                "host_syncs_per_iteration": (r0["host_syncs"]
+                                             + wc["staging_host_syncs"])
+                / max(iters, 1),
+                "halo_bytes_per_iteration": wc["bytes_sent"].get("halo", 0)
+                / max(iters, 1),
+                "hop_bytes_per_iteration": wc["bytes_sent"].get("hop", 0)
+                / max(iters, 1),
+                "all_reduce_bytes_per_iteration":
+                    wc["bytes_sent"].get("all_reduce", 0) / max(iters, 1),
+                "ranks_agree_bitwise": agree(recs, "x_sha256",
+                                             "history_sha256"),
+                "halo_slab_plugin_every_iteration": all(
+                    r["launches"].get(key, 0) == iters > 0 for r in recs)
+                if key else None,
+                "overlap_by_rank": [r.get("overlap") for r in recs],
+                "launches_by_rank": [r["launches"] for r in recs]}
+
+    try:
+        # ---- 2. a world of one over NCCL --------------------------------
+        lap_spec = {"config": "laplace2d"}
+        w1, w1_s = run_group("w1", 1, "nccl", [
+            task("solve_batched", "slab", lap_spec, "lap", lap_kw),
+            task("solve", "governed", lap_spec, "lap", gov_kw, key="b"),
+            serve_task("serve", {"config": "laplace2d", "use_kernel": True},
+                       "srv16", "monolithic",
+                       dict(s=SLAB_S, method="cg", chunk_iters=64,
+                            maxit=20000))])
+        recs, arr = w1["slab"]
+        rec = slab_rec(recs, "fused_iter_halo_slab")
+        x, h = arr["x"], arr["res_history"]
+        cols = [(digest(torch.as_tensor(x[c])),
+                 digest(torch.as_tensor(h[c]))) for c in range(SLAB_S)]
+        rec["columns_bitwise_vs_one_device_slab"] = \
+            cols == REFS.get("slab_laplace2d")
+        rec["column0_bitwise_vs_main_solve"] = cols[0] == main_digest
+        rec["one_device_slab_ms_per_update"] = REFS.get(
+            "slab_laplace2d_ms_per_update")
+        w1_rec = {"group_s": w1_s, "slab": rec}
+        if not (rec["columns_bitwise_vs_one_device_slab"]
+                and rec["column0_bitwise_vs_main_solve"]
+                and rec["halo_slab_plugin_every_iteration"]):
+            failed.append("world1 slab")
+        grec = w1["governed"][0][0]
+        w1_rec["governed"] = {
+            "iters": grec["iters"], "restarts": grec["restarts"],
+            "wall_s": grec["wall_s"],
+            "ms_per_vector_phase": grec["ms_per_vector_phase"],
+            "bitwise_vs_one_device": [grec["x_sha256"],
+                                      grec["history_sha256"],
+                                      grec["telemetry_sha256"],
+                                      grec["governor_sha256"]]
+            == REFS.get("governed_clean")}
+        if not w1_rec["governed"]["bitwise_vs_one_device"]:
+            failed.append("world1 governed")
+        srec = w1["serve"][0][0]
+        got = {k: [srec["iters"][k], srec["x_sha256"][k]]
+               for k in srec["iters"]}
+        w1_rec["serve"] = {"requests": len(got), "wall_s": srec["wall_s"],
+                           "finished": len(srec["finished"]),
+                           "bitwise_vs_one_device_service":
+                               got == REFS.get("serve_2048"),
+                           "chunks_run": srec["chunks_run"]}
+        if not w1_rec["serve"]["bitwise_vs_one_device_service"] or \
+                len(got) != SERVE_REQUESTS:
+            failed.append("world1 serve")
+        out["world1_nccl"] = w1_rec
+
+        # ---- 3. four gloo ranks on the one card -------------------------
+        ice_spec = {"config": "icesheet3d"}
+        g4, g4_s = run_group("g4", N_RANKS, "gloo", [
+            task("solve_batched", "lap_staged", lap_spec, "lap", short,
+                 "staged", overlap=window),
+            task("solve_batched", "lap_mono", lap_spec, "lap", short,
+                 overlap=window),
+            task("solve_batched", "ice_staged", ice_spec, "ice", ice_solver,
+                 "staged"),
+            task("solve", "ice_governed", ice_spec, "ice", ice_gov,
+                 "staged", key="b"),
+            serve_task("serve", {"npz": files["small"]}, "srv8", "staged",
+                       dict(s=SLAB_S, method="cg", chunk_iters=64,
+                            maxit=20000))])
+        cfg = StagedConfig(N_RANKS, stages=2)
+        g4_rec = {"group_s": g4_s}
+        ref_s = {}
+
+        def timed_ref(name, fn):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            r = fn()
+            torch.cuda.synchronize()
+            ref_s[name] = time.perf_counter() - t0
+            return r
+
+        def same(arr, res):
+            return bool(np.array_equal(arr["x"], res.x.cpu().numpy())
+                        and np.array_equal(arr["res_history"],
+                                           res.res_history.cpu().numpy()))
+
+        Bt = torch.as_tensor(B, device=dev)
+        o_lap = timed_ref("lap_staged", lambda: batched.solve_batched(
+            rank_oracle_ops(op, prec, cfg), Bt, "plcg",
+            **dict(solve_kw, maxit=RANKS_SHORT, tol=1e-30)))
+        for name in ("lap_staged", "lap_mono"):
+            g4_rec[name] = slab_rec(g4[name][0], "fused_iter_halo_slab")
+        g4_rec["lap_staged"]["bitwise_vs_oracle"] = same(g4["lap_staged"][1],
+                                                         o_lap)
+        head, tail = history_head_tail(
+            g4["lap_mono"][1]["res_history"].reshape(-1),
+            o_lap.res_history.cpu().numpy().reshape(-1),
+            float(o_lap.norm0.max()))
+        g4_rec["lap_mono"]["history_vs_staged"] = {"head_max": head,
+                                                   "max": tail}
+        del o_lap, Bt
+        IBt = torch.as_tensor(IB, device=dev)
+        o_ice = timed_ref("ice_staged", lambda: batched.solve_batched(
+            rank_oracle_ops(iop, iprec, cfg), IBt, "plcg", **ice_kw))
+        g4_rec["ice_staged"] = slab_rec(g4["ice_staged"][0],
+                                        "fused_iter_ell_halo_slab")
+        g4_rec["ice_staged"]["bitwise_vs_oracle"] = same(
+            g4["ice_staged"][1], o_ice)
+        del o_ice
+        gov = GovernorConfig()
+        o_gov = timed_ref("ice_governed", lambda: METHODS["plcg"](
+            rank_oracle_ops(iop, iprec, cfg), IBt[0],
+            dict(ice_kw, recurrence="stable", governor=gov,
+                 telemetry_cap=256)))
+        grecs, garr = g4["ice_governed"]
+        g4_rec["ice_governed"] = {
+            "iters": grecs[0]["iters"], "restarts": grecs[0]["restarts"],
+            "converged": grecs[0]["converged"],
+            "ring_and_governor_same_on_every_rank": agree(
+                grecs, "telemetry_sha256", "governor_sha256",
+                "x_sha256", "history_sha256"),
+            "bitwise_vs_oracle": same(garr, o_gov) and bool(
+                np.array_equal(garr["telemetry"],
+                               o_gov.telemetry.cpu().numpy())
+                and np.array_equal(garr["governor"],
+                                   o_gov.governor.cpu().numpy()))}
+        del o_gov, IBt
+        srecs, sarr = g4["serve"]
+        ref_svc = SolverService(
+            LocalBackend(device=dev, reduction="staged",
+                         virtual_shards=N_RANKS), s=SLAB_S, method="cg",
+            chunk_iters=64, maxit=20000, prec="jacobi", clock=VirtualClock())
+        ref_svc.register_operator("op", Stencil2D5(RANKS_SERVE_NX,
+                                                   RANKS_SERVE_NX))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rrep = replay(ref_svc, rtrace, iter_time_s=1e-3, tick_overhead_s=1e-3)
+        ref_s["serve"] = time.perf_counter() - t0
+        want = {str(k): [r.iters, digest(torch.as_tensor(r.x))]
+                for k, r in ref_svc.results.items() if not r.shed}
+        got = {k: [srecs[0]["iters"][k], srecs[0]["x_sha256"][k]]
+               for k in srecs[0]["iters"]}
+        g4_rec["serve"] = {
+            "n": small.n, "requests": RANKS_SERVE_REQUESTS,
+            "wall_s": max(r["wall_s"] for r in srecs),
+            "ranks_see_the_same_sets": agree(srecs, "admitted", "shed",
+                                             "finished", "x_sha256",
+                                             "retirement_log"),
+            "admitted": len(srecs[0]["admitted"]),
+            "admitted_at_the_door": srecs[0]["admitted_at_the_door"],
+            "finished": len(srecs[0]["finished"]),
+            "shed": len(srecs[0]["shed"]),
+            "bitwise_vs_one_device_staged_service": got == want,
+            "report_equal": {k: v == rrep.metrics().get(k) for k, v in
+                             srecs[0]["report"].items()},
+            "serve_bytes_by_rank": [r["wire_counts"]["bytes_sent"].get(
+                "serve", 0) for r in srecs]}
+        del ref_svc
+        for name, sec in ref_s.items():
+            g4_rec.setdefault(name, {})["reference_in_one_process_s"] = sec
+        g4_rec["wire_bytes_per_iteration_reduction_wire_bytes"] = \
+            reduction_wire_bytes(N_RANKS, lap.l, SLAB_S)
+        out["gloo_4_ranks_one_card"] = g4_rec
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["seconds"] = time.perf_counter() - t_phase
+    out["halo_slab"] = timings
+    emit(out)
+    g4r = out["gloo_4_ranks_one_card"]
+    ov = [o for name in ("lap_staged", "lap_mono")
+          for o in g4r[name]["overlap_by_rank"]]
+    checks = {
+        "world1_slab_bitwise": "world1 slab" not in failed,
+        "world1_governed_bitwise": "world1 governed" not in failed,
+        "world1_serve_bitwise": "world1 serve" not in failed,
+        "lap_staged_bitwise": g4r["lap_staged"]["bitwise_vs_oracle"],
+        "lap_mono_close": g4r["lap_mono"]["history_vs_staged"]["max"]
+        <= ORACLE_HIST,
+        "ice_staged_bitwise": g4r["ice_staged"]["bitwise_vs_oracle"]
+        and g4r["ice_staged"]["converged"],
+        "ice_governed": g4r["ice_governed"]["bitwise_vs_oracle"]
+        and g4r["ice_governed"]["ring_and_governor_same_on_every_rank"]
+        and g4r["ice_governed"]["converged"],
+        "serve": g4r["serve"]["ranks_see_the_same_sets"]
+        and g4r["serve"]["bitwise_vs_one_device_staged_service"]
+        and g4r["serve"]["finished"] == RANKS_SERVE_REQUESTS,
+        "ranks_agree": all(g4r[k]["ranks_agree_bitwise"] for k in
+                           ("lap_staged", "lap_mono", "ice_staged")),
+        "halo_slab_plugin_every_iteration": all(
+            g4r[k]["halo_slab_plugin_every_iteration"] for k in
+            ("lap_staged", "lap_mono", "ice_staged")),
+        "overlap": all(o["max_in_flight"] == lap.l
+                       and set(o["starts_per_window"]) == {1}
+                       for o in ov)
+        and all(o["collective_bytes"] >= o["window"] * (2 * lap.l + 1)
+                * SLAB_S * 8 for o in g4r["lap_mono"]["overlap_by_rank"]),
+    }
+    emit({"phase": "ranks_slab_checks", **checks})
+    if not all(checks.values()):
+        raise AssertionError("ranks_slab failed: " + ", ".join(
+            k for k, v in checks.items() if not v))
+    return launches, errs, timings
 
 
 def main() -> int:
@@ -3437,6 +3987,17 @@ def main() -> int:
     overlap_launches = overlap_phase(gpu, lap, op, prec, b, sig, iop,
                                      timings["ell_spmv"]["device_ms"])
 
+    # ---- 21. batched solves, the ring and governor, the service: ranks --
+    from repro_torch.linalg.partition import plan_for
+    rank_launches, rank_err, rank_timings = ranks_slab_phase(
+        dev, gpu, randn, phase_scal, lap, ice, op, prec, b, solve_kw, main,
+        main_digest, iop, iprec, ib, ice_kw, plan_for(iop, N_SHARDS))
+    timings["fused_iter_halo_slab"] = rank_timings["laplace2d"]
+    timings["fused_iter_ell_halo_slab"] = rank_timings["icesheet3d"]
+    err["fused_iter_halo_slab"] = max(rank_err["laplace2d"],
+                                      rank_err["icesheet3d-stencil"])
+    err["fused_iter_ell_halo_slab"] = rank_err["icesheet3d"]
+
     # ---- contract lines --------------------------------------------------
     src_dir = "src/repro_torch/kernels/csrc/"
     kernels = []
@@ -3475,7 +4036,13 @@ def main() -> int:
          "src/repro/kernels/decode_attention.py:65",
          ep_launches.get("decode_attention", 0)),
     ] + [(name, src_dir + source, replaces, slab_launches.get(name, 0))
-         for name, source, replaces in slab_kernels]:
+         for name, source, replaces in slab_kernels] + [
+        ("fused_iter_halo_slab", src_dir + "fused_iter.cuh",
+         "src/repro/kernels/fused_iter.py:199",
+         rank_launches.get("fused_iter_halo_slab", 0)),
+        ("fused_iter_ell_halo_slab", src_dir + "fused_iter.cuh",
+         "src/repro/kernels/fused_iter.py:229",
+         rank_launches.get("fused_iter_ell_halo_slab", 0))]:
         t = timings[name]
         kernels.append({
             "name": name, "route": "cuda", "source": source,
@@ -3489,7 +4056,8 @@ def main() -> int:
             "launches_ranks": wire_launches.get(name, 0),
             "launches_stability": stab_launches.get(name, 0),
             "launches_checkpoint": ckpt_launches.get(name, 0),
-            "launches_overlap": overlap_launches.get(name, 0)})
+            "launches_overlap": overlap_launches.get(name, 0),
+            "launches_ranks_slab": rank_launches.get(name, 0)})
     for k in kernels:
         if k["launches"] == 0:
             raise AssertionError(f"{k['name']} was never launched on its path")

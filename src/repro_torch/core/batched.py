@@ -68,6 +68,55 @@ BUILDERS: dict[str, Callable] = {
     "plcg": pipelined_cg.build,
 }
 
+def vector_mask(method: str):
+    """The state of ``method``'s program with each leaf replaced by a
+    bool: True for the leaves whose TRAILING axis is the vector axis n,
+    the ones a row partition splits over the ranks (each rank holds its
+    block of rows of them); False for the windows, scalars, histories,
+    the telemetry ring and the governor vector, which every rank holds
+    bit for bit (the JAX package's ``vector_mask``, whose leaves shard
+    under ``shard_map``; the port's program clocks ``i``, ``k`` and ``t``
+    are host values, the same on every rank).  :func:`split_state` uses
+    it."""
+    if method == "cg":
+        return classic_cg.CgState(
+            x=True, r=True, u=True, p=True,
+            gamma=False, it=False, conv=False, hist=False)
+    if method == "pcg":
+        return ghysels_pcg.PcgState(
+            S=True, gamma=False, alpha=False, it=False, conv=False,
+            hist=False, since_rr=False, k=False)
+    if method == "plcg":
+        cyc = pipelined_cg._Cycle(
+            S=True, G=False, D=False, gam=False, dlt=False,
+            eta_prev=False, zet_prev=False, i=False, norm0_cycle=False)
+        return pipelined_cg._State(
+            cyc=cyc, tot=False, upd=False, restarts=False, converged=False,
+            breakdown=False, hist=False, norm0=False, since_rr=False,
+            t=False, tel=False, gov=False)
+    raise KeyError(method)
+
+
+def split_state(st, method: str) -> tuple[list, list]:
+    """(vector leaves, replicated leaves) of a program state, in leaf
+    order, by :func:`vector_mask`: over ranks the first are each rank's
+    rows, the second the same on every rank (None leaves dropped).
+    p(l)-CG's D ring is left out of both: its in-flight slots hold each
+    rank's own partials (or the all-reduce's token) until they arrive."""
+    vec, rep = [], []
+
+    def walk(v, m):
+        if isinstance(v, tuple) and hasattr(v, "_fields"):
+            for name, a, b in zip(v._fields, v, m):
+                if not (name == "D" and isinstance(v, pipelined_cg._Cycle)):
+                    walk(a, b)
+        elif v is not None:
+            (vec if m else rep).append(v)
+
+    walk(st, vector_mask(method))
+    return vec, rep
+
+
 class SlabStatus(NamedTuple):
     """Cheap per-chunk slab view, one entry a column."""
 

@@ -330,14 +330,16 @@ def build(
 
     # ----------------------------------------------------- scalar phase ---
     def scalar_phase(G, D, gam, dlt, eta_prev, zet_prev, norm0_cycle,
-                     i: int, o: int):
+                     i: int, o: int, waited=None):
         """MPI_Wait arrival + K2 + K3 + K6 of cycle iteration ``i`` for
         windows whose logical index k sits at ring position (k + o) mod
         length (``o`` = clock - i).  G, gam and dlt are updated in place;
         every value read from them below is either consumed before the
         element is rewritten or is the post-write value the functional
-        reference reads too.  Returns (scal, breakdown or None, zet_new,
-        eta_prev', zet_prev', the arrived dot block or None)."""
+        reference reads too.  ``waited``: the arrived dot block, already
+        waited for (a group of a slab's columns); None waits for D's slot
+        here.  Returns (scal, breakdown or None, zet_new, eta_prev',
+        zet_prev', the arrived dot block or None)."""
         im = i - l                     # index of the Hessenberg column built
         ge_l = i >= l
         w_im, w_im1 = (im + o) % W, (im - 1 + o) % W
@@ -345,9 +347,9 @@ def build(
         if ge_l:
             col = i - l + 1            # G column whose dots arrived
             w_col = (col + o) % W
-            arrived = ops.wait(ring(D, (im + o) % l),
-                               advanced=l - 1).to(dtype)
-            if need_dots:
+            arrived = waited if waited is not None else ops.wait(
+                ring(D, (im + o) % l), advanced=l - 1).to(dtype)
+            if need_dots and waited is None:
                 # A view of the D slot this iteration's start overwrites.
                 arrived = arrived.clone()
             for t in range(2 * l + 1):         # rows im-2l+1 .. im+1
@@ -460,6 +462,11 @@ def build(
                                c.zet_prev, c.norm0_cycle, i, t - i)
             return out + (i >= l + 1, i >= l)
         s_ = len(c.i)
+        # ONE wait for the slab's in-flight block (every group's columns
+        # arrive from the ring slot of clock t - l): a wire's request or
+        # ladder completes once, whatever the groups.
+        full = (ops.wait(ring(c.D, t % l), advanced=l - 1).to(dtype)
+                if max(c.i) >= l else None)
         scal = torch.empty((s_, 8 + l), dtype=dtype, device=dev)
         bd = torch.zeros((s_,), dtype=torch.bool, device=dev)
         zet = torch.zeros((s_,), dtype=dtype, device=dev)
@@ -472,8 +479,9 @@ def build(
             win = [X.index_select(0, gi) for X in
                    (c.G, c.D, c.gam, c.dlt, c.eta_prev, c.zet_prev,
                     c.norm0_cycle)]
-            sc_g, bd_g, zet_g, eta_g, zp_g, arr_g = scalar_phase(*win, i,
-                                                                 t - i)
+            sc_g, bd_g, zet_g, eta_g, zp_g, arr_g = scalar_phase(
+                *win, i, t - i,
+                full.index_select(0, gi) if i >= l else None)
             c.G.index_copy_(0, gi, win[0])
             c.gam.index_copy_(0, gi, win[2])
             c.dlt.index_copy_(0, gi, win[3])

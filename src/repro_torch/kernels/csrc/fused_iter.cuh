@@ -36,9 +36,10 @@
 //   bulk copies on an mbarrier (bulk_copy.cuh; a ragged last tile or a
 //   misaligned base by coalesced ordinary loads into the same buffer), and
 //   the threads sum their rows from there, ELL_CHUNK gathers issued before
-//   their sums.  A W too wide for ELL_TILE_BYTES (the wrapper's plan,
-//   kernels/fused_iter.py `ell_tile_plan`) keeps the direct reads, and so
-//   do the halo plug-in and the runtime-depth kernel.
+//   their sums.  The ELL halo plug-in takes the same staged kernel, its
+//   gathers from the prepared operand.  A W too wide for ELL_TILE_BYTES
+//   (the wrapper's plan, kernels/fused_iter.py `ell_tile_plan`) keeps the
+//   direct reads, and so does the runtime-depth kernel.
 // * Store order and masks follow the plain version exactly: every mask is a
 //   select, and a masked-off row write (which in the plain version stores
 //   the row's original value back) is skipped only when no earlier write of
@@ -88,8 +89,9 @@
 // * Slab form (the JAX package vmaps the Pallas kernel over a slab of s
 //   right-hand sides): a second grid dimension over the s columns of an
 //   (s, NV, N) slab, one launch.  Column c reads its own idx and scal rows
-//   (each column is at its own cycle index), its own ring-top copy and
-//   writes its own partials; the preconditioner's inverse diagonal, the
+//   (each column is at its own cycle index), its own ring-top copy (a halo
+//   plug-in: its own prepared operand, at c * zs) and writes its own
+//   partials; the preconditioner's inverse diagonal, the
 //   diagonal and the ELL cols/vals are shared.  A column's blocks and its
 //   partials sum are the single-column launch's, in the same order, so
 //   every column's rows and dots are bitwise those of a single-column
@@ -129,7 +131,7 @@ enum { SPMV_2D5 = 0, SPMV_3D7 = 1, SPMV_3D27 = 2, SPMV_DIAG = 3,
        SPMV_ELL_HALO = 7 };
 
 // Plug-ins whose operand the wrapper prepares (a halo-extended vector).
-constexpr bool is_halo(int kind) {
+__host__ __device__ constexpr bool is_halo(int kind) {
   return kind == SPMV_2D5_HALO || kind == SPMV_3D7_HALO ||
          kind == SPMV_ELL_HALO;
 }
@@ -186,7 +188,7 @@ __device__ __forceinline__ double spmv_at(const Spmv& sp, long long j,
                                           double zj) {
   if constexpr (KIND == SPMV_DIAG) {
     return sp.d[j] * zj;
-  } else if constexpr (KIND == SPMV_ELL && TILE) {
+  } else if constexpr ((KIND == SPMV_ELL || KIND == SPMV_ELL_HALO) && TILE) {
     const int r = threadIdx.x * sp.w;
     return ell_row_staged(sp.vals + r, sp.cols + r, sp.w, sp.z);
   } else if constexpr (KIND == SPMV_ELL || KIND == SPMV_ELL_HALO) {
@@ -711,7 +713,9 @@ __global__ void __launch_bounds__(BLOCK)
 // in turn from that tile, each column's products through its own block
 // tree into its own partials.  It gathers from the column's ring-top row
 // in place: no row of the phase writes it (check_z_top_not_written in
-// kernels/fused_iter.py), so no copy is taken.  Between two columns no
+// kernels/fused_iter.py), so no copy is taken; the halo plug-in
+// (SPMV_ELL_HALO) gathers from the column's prepared operand, sp.z +
+// c * zs.  Between two columns no
 // barrier is needed:
 // the threads that read red[k BLOCK] for the partials do so before the
 // next column's block_setup barrier, and red is written after it.
@@ -721,6 +725,7 @@ __global__ void __launch_bounds__(BLOCK)
                              long long cs, int rb, int s,
                              const int* __restrict__ idx_g,
                              const double* __restrict__ scal_g, Spmv sp,
+                             long long zs,
                              const double* __restrict__ inv_diag,
                              double* __restrict__ part,
                              long long bulk_tiles) {
@@ -764,7 +769,8 @@ __global__ void __launch_bounds__(BLOCK)
                 scal_g + (long long)c * (8 + L), idx, scal, store_fill,
                 store_rec);
     if (c == 0 && by_copy) bulk::mbar_wait(&bar, 0);
-    spt.z = S + c * cs + (long long)idx[Ix(L).Z_TOP] * ld;
+    spt.z = is_halo(KIND) ? sp.z + c * zs
+                          : S + c * cs + (long long)idx[Ix(L).Z_TOP] * ld;
     RegVals<L> v;
     if (j < n) {
       vector_phase<KIND, STABLE, PREC, L, true>(
@@ -885,7 +891,8 @@ cudaError_t launch(Args a) {
 }
 
 // The staged ELL kernel: one block a row tile for all s columns, no copy
-// of the ring-top rows (zbuf unused).  It opts in to its tile's dynamic
+// of the ring-top rows (zbuf: the halo plug-in's prepared operands, else
+// unused).  It opts in to its tile's dynamic
 // shared memory once per device.
 template <int KIND, int L, bool STABLE, bool PREC>
 cudaError_t launch_staged(Args a) {
@@ -906,10 +913,11 @@ cudaError_t launch_staged(Args a) {
     if (e != cudaSuccess) return e;
     allowed[dev] = a.tile_bytes;
   }
+  if constexpr (is_halo(KIND)) a.sp.z = a.zbuf;
   fused_iter_kernel_staged<KIND, L, STABLE, PREC>
       <<<a.nblocks, BLOCK, (size_t)a.tile_bytes, a.stream>>>(
-          a.S, a.n, a.ld, a.cs, a.rb, a.s, a.idx, a.scal, a.sp, a.inv_diag,
-          a.part, a.bulk_tiles);
+          a.S, a.n, a.ld, a.cs, a.rb, a.s, a.idx, a.scal, a.sp, a.zs,
+          a.inv_diag, a.part, a.bulk_tiles);
   sum_partials<<<dim3(2 * L + 1, a.s), BLOCK, 0, a.stream>>>(
       a.part, a.nblocks, a.partials);
   return cudaGetLastError();
@@ -961,7 +969,7 @@ cudaError_t dispatch(int l, bool stable, bool prec, const Args& a) {
                 : launch_rt<KIND, false, false>(a, l);
   } else {
     if (l != L) return dispatch<KIND, L + 1>(l, stable, prec, a);
-    if constexpr (KIND == SPMV_ELL) {
+    if constexpr (KIND == SPMV_ELL || KIND == SPMV_ELL_HALO) {
       if (a.tile_bytes > 0) {
         if (stable)
           return prec ? launch_staged<KIND, L, true, true>(a)
@@ -989,7 +997,7 @@ cudaError_t dispatch(int l, bool stable, bool prec, const Args& a) {
 // for a block of its columns (a virtual shard's, updated in place).
 // `s` columns, `cs` elements apart in S (s = 1: one column); idx, scal,
 // zbuf (`zs` apart: n for the ring-top copies), part and partials hold one
-// row per column.  `tile_bytes` > 0 (the ELL plug-in at l <= LMAX only)
+// row per column.  `tile_bytes` > 0 (the ELL plug-ins at l <= LMAX only)
 // launches the staged ELL kernel with that tile, its first `bulk_tiles`
 // tiles by bulk copy; the runtime-depth kernel ignores both.
 // NAME_smem_optin writes the current device's largest dynamic shared memory

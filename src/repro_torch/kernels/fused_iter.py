@@ -25,17 +25,20 @@ bitwise those of a single-column launch on that column.  Its plain
 version is ``ref.fused_iter_ref_slab`` (the single-column plain version
 applied to each column), and a launch counts under
 ``launch_key(kind, l, slab=True)`` (the single-column key + ``_slab``).
-Single-device plug-ins only: batched solves over ranks are not ported.
+A halo plug-in takes the slab form too (a batched solve over ranks):
+``prepare`` builds every column's extended operand from the (s, N)
+ring-top rows at once, (s, ext_len), one halo message a neighbour for
+all s columns, and column c's plug-in reads row c of it.
 
 Plug-ins come in two forms, as in the JAX package: single-device (the
 operand is the ring-top row itself) and halo-extended (a shard of a row
 partition: ``prepare(z_top)`` builds the extended operand outside the
 kernel, and the plug-in's expression reads it).
 
-The single-device ELL plug-in at l <= ``LMAX`` runs the staged ELL kernel
-when :func:`ell_tile_plan` stages it: one block a 256-row tile, its cols
-and vals copied to shared memory once and read there by every column of
-the slab in turn.
+The ELL plug-ins (single-device and halo) at l <= ``LMAX`` run the staged
+ELL kernel when :func:`ell_tile_plan` stages them: one block a 256-row
+tile, its cols and vals copied to shared memory once and read there by
+every column of the slab in turn.
 """
 
 from __future__ import annotations
@@ -194,6 +197,17 @@ def host_idx(layout: SlabLayout, i: int) -> list[int]:
     return idx
 
 
+def ring_top(S: torch.Tensor, idx, pos: int) -> torch.Tensor:
+    """The ring-top row of a slab ``S``, read at index-vector position
+    ``pos`` of ``idx`` on the device (no host sync): (N,) for one
+    column's (NV, N), (s, N) for a slab's (s, NV, N), each column at its
+    own row."""
+    idx = torch.as_tensor(idx, device=S.device)
+    if S.dim() == 2:
+        return S.index_select(0, idx[pos:pos + 1])[0]
+    return S[torch.arange(S.shape[0], device=S.device), idx[:, pos]]
+
+
 def written_rows(layout: SlabLayout, idx) -> set[int]:
     """Slab rows one vector phase writes for the index vector ``idx``."""
     IX = idx_layout(layout.l)
@@ -232,8 +246,10 @@ class FusedSpmv:
     operator's plain apply of the ring-top row, which the CPU path
     evaluates and which the kernel mirrors term by term.  A halo plug-in
     (``kind`` in ``HALO_KINDS``) also has ``prepare(z_top)``, which builds
-    its ``ext_len``-long operand outside the kernel; its ``expr`` is the
-    shard-level expression applied to that operand.
+    its ``ext_len``-long operand outside the kernel from one ring-top row
+    (N,) or a slab's (s, N) ((s, ext_len) then); ``ext_expr`` is the
+    shard-level expression on one such operand, and ``expr`` the two
+    composed.
     """
 
     kind: str
@@ -246,6 +262,7 @@ class FusedSpmv:
     vals: torch.Tensor | None = None
     prepare: Callable[[torch.Tensor], torch.Tensor] | None = None
     ext_len: int = 0
+    ext_expr: Callable[[torch.Tensor], torch.Tensor] | None = None
 
     @property
     def operand_bytes(self) -> int:
@@ -290,7 +307,8 @@ def resident_spmv(kind: str, expr: Callable[[torch.Tensor], torch.Tensor],
     return FusedSpmv(kind=kind + "_halo", expr=_with_prepare(expr, prepare),
                      n=math.prod(dims3), dims=dims3, coef=float(coef),
                      prepare=prepare,
-                     ext_len=(dims3[0] + 2) * dims3[1] * dims3[2])
+                     ext_len=(dims3[0] + 2) * dims3[1] * dims3[2],
+                     ext_expr=expr)
 
 
 def diagonal_spmv(d: torch.Tensor) -> FusedSpmv:
@@ -319,7 +337,7 @@ def ell_spmv(cols: torch.Tensor, vals: torch.Tensor,
                          cols=cols, vals=vals64)
     return FusedSpmv(kind="ell_halo", expr=_with_prepare(expr, prepare),
                      n=int(cols.shape[0]), cols=cols, vals=vals64,
-                     prepare=prepare, ext_len=int(ext_len))
+                     prepare=prepare, ext_len=int(ext_len), ext_expr=expr)
 
 
 # ---------------------------------------------------------------- kernel --
@@ -421,7 +439,8 @@ def _check(t: torch.Tensor, name: str, dtype, shape, device,
            rows_strided: bool = False) -> None:
     """Refuse a tensor a kernel cannot take.  ``rows_strided`` admits a
     2-D tensor whose rows are contiguous but lie further apart (a block of
-    a wider tensor's columns)."""
+    a wider tensor's columns), or a 3-D slab of such blocks whose columns
+    do not overlap."""
     if t.device != device:
         raise ValueError(f"{name} is on {t.device}, expected {device}")
     if t.dtype != dtype:
@@ -429,8 +448,9 @@ def _check(t: torch.Tensor, name: str, dtype, shape, device,
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name} has shape {tuple(t.shape)}, "
                          f"expected {tuple(shape)}")
-    if rows_strided and t.dim() == 2 and t.stride(1) == 1 \
-            and t.stride(0) >= t.shape[1]:
+    if rows_strided and t.dim() in (2, 3) and t.stride(-1) == 1 \
+            and t.stride(-2) >= t.shape[-1] \
+            and (t.dim() == 2 or t.stride(0) >= t.shape[1] * t.stride(1)):
         return
     if not t.is_contiguous():
         raise ValueError(f"{name} is not contiguous")
@@ -466,17 +486,22 @@ def build_fused_iteration(
             if row[IX["z_top"]] in written_rows(layout, row):
                 raise ValueError("z_top row is among the rows this phase "
                                  "writes")
-        ref_fn = fused_iter_ref if S.dim() == 2 else fused_iter_ref_slab
-        return ref_fn(S, idx, scal, spmv.expr, prec, layout)
+        if S.dim() == 2:
+            return fused_iter_ref(S, idx, scal, spmv.expr, prec, layout)
+        if spmv.prepare is None:
+            return fused_iter_ref_slab(S, idx, scal, spmv.expr, prec,
+                                       layout)
+        # A halo plug-in's slab: every column's operand in one prepare,
+        # then column c's shard expression on row c of it.
+        ext = spmv.prepare(ring_top(S, idx, IX["z_top"]))
+        return fused_iter_ref_slab(
+            S, idx, scal, [lambda z, e=e: spmv.ext_expr(e) for e in ext],
+            prec, layout)
 
     def launch(S, idx, scal):
         dev = S.device
         slab = S.dim() == 3
         s = S.shape[0] if slab else 1
-        if slab and spmv.prepare is not None:
-            raise ValueError("the slab form takes single-device plug-ins "
-                             "only: batched solves over ranks are not ported "
-                             "(ROADMAP.md, queue 1 item 5b)")
         if not 1 <= s <= MAX_SLAB:
             raise ValueError(f"a slab of {s} columns (want 1 to {MAX_SLAB})")
         if l > LMAX:
@@ -488,10 +513,7 @@ def build_fused_iteration(
                     f"runtime-depth kernel needs {need} bytes of shared "
                     f"memory a block, the card allows {have}")
         lead = (s,) if slab else ()
-        if slab:
-            _check(S, "S", torch.float64, (s, nv, n), dev)
-        else:
-            _check(S, "S", torch.float64, (nv, n), dev, rows_strided=True)
+        _check(S, "S", torch.float64, lead + (nv, n), dev, rows_strided=True)
         _check(idx, "idx", torch.int32, lead + (IX["size"],), dev)
         _check(scal, "scal", torch.float64, lead + (IS["size"],), dev)
         inv = None
@@ -507,7 +529,7 @@ def build_fused_iteration(
             w = int(cols.shape[1])
             _check(cols, "cols", torch.int32, (n, w), dev)
             _check(vals, "vals", torch.float64, (n, w), dev)
-            if spmv.kind == "ell" and l <= LMAX:
+            if spmv.kind in ("ell", "ell_halo") and l <= LMAX:
                 tp = ell_tile_plan(n, w, cols.data_ptr(), vals.data_ptr())
                 if tp.staged:
                     tile_bytes, bulk_tiles = tp.tile_bytes, tp.bulk_tiles
@@ -515,11 +537,11 @@ def build_fused_iteration(
         zs = n
         if spmv.prepare is not None:
             # The halo plug-ins read the operand ``prepare`` builds from the
-            # ring-top row (selected on the device: no host sync).
-            pos = IX["z_top"]
-            zbuf = spmv.prepare(S.index_select(0, idx[pos:pos + 1])[0])
+            # ring-top row, of every column of a slab at once (selected on
+            # the device: no host sync); column c's at c * ext_len.
+            zbuf = spmv.prepare(ring_top(S, idx, IX["z_top"]))
             _check(zbuf, "prepared operand", torch.float64,
-                   (spmv.ext_len,), dev)
+                   lead + (spmv.ext_len,), dev)
             zs = spmv.ext_len
         elif spmv.kind == "diagonal" or tile_bytes:
             zbuf = None     # no operand, or the staged ELL kernel's in place

@@ -291,11 +291,14 @@ def fused_iter_unfused_slab(S, idx, scal, apply_a, prec, layout):
 def fused_iter_ref_slab(S, idx, scal, apply_a, prec, layout):
     """The plain version of the superkernel's slab form: the single-column
     :func:`fused_iter_ref` applied to each column ``c`` with its own
-    ``idx[c]`` and ``scal[c]``; ``apply_a``/``prec`` act on one column.
+    ``idx[c]`` and ``scal[c]``; ``apply_a``/``prec`` act on one column
+    (``apply_a`` may be a list, column c's SPMV at c: a halo plug-in's
+    shard expression on that column's prepared operand).
     Returns a fresh (s, NV, N) slab and the (s, 2l+1) partials."""
     outs, parts = [], []
     for c in range(S.shape[0]):
-        out, part = fused_iter_ref(S[c], idx[c], scal[c], apply_a, prec,
+        fa = apply_a[c] if isinstance(apply_a, list) else apply_a
+        out, part = fused_iter_ref(S[c], idx[c], scal[c], fa, prec,
                                    layout)
         outs.append(out)
         parts.append(part)

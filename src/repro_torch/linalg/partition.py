@@ -211,26 +211,32 @@ def halo_exchange(x_local: torch.Tensor, send_up: torch.Tensor,
                   send_dn: torch.Tensor) -> torch.Tensor:
     """Every shard's extended local vector, in one process.
 
-    ``x_local`` is the (P, nxl) stack of the shards' own rows and
-    ``send_up``/``send_dn`` the plan's (P, hops, max_send) send sets.
-    Shard s's vector is [own | from s-1, ..., s-hops | from s+1, ...,
-    s+hops], each slab the sender's buffer ``x_local[s∓h][send[s∓h, h-1]]``
-    (slicing stands in for the wire), zeros where no peer exists: the
-    empty halo at the domain's ends.  Returns (P, nxl + 2*hops*max_send)."""
-    p = x_local.shape[0]
+    ``x_local`` is the (P, nxl) stack of the shards' own rows, or a slab's
+    (s, P, nxl), and ``send_up``/``send_dn`` the plan's (P, hops,
+    max_send) send sets.  Shard s's vector is [own | from s-1, ...,
+    s-hops | from s+1, ..., s+hops], each slab the sender's buffer
+    ``x_local[s∓h][send[s∓h, h-1]]`` (slicing stands in for the wire),
+    zeros where no peer exists: the empty halo at the domain's ends.
+    Returns (P, nxl + 2*hops*max_send), or (s, P, ...) for a slab."""
+    p = x_local.shape[-2]
+    lead = tuple(x_local.shape[:-2])
     hops, max_send = send_up.shape[1], send_up.shape[2]
-    zeros = x_local.new_zeros((p, max_send))
+    zeros = x_local.new_zeros(lead + (p, max_send))
     from_prev, from_next = [], []
     for h in range(1, hops + 1):
-        up_buf = torch.gather(x_local, 1, send_up[:, h - 1].long())
-        dn_buf = torch.gather(x_local, 1, send_dn[:, h - 1].long())
+        up_buf = torch.gather(x_local, -1, send_up[:, h - 1].long().expand(
+            lead + (p, max_send)))
+        dn_buf = torch.gather(x_local, -1, send_dn[:, h - 1].long().expand(
+            lead + (p, max_send)))
         if p > h:
-            from_prev.append(torch.cat([zeros[:h], up_buf[:p - h]]))
-            from_next.append(torch.cat([dn_buf[h:], zeros[:h]]))
+            from_prev.append(torch.cat([zeros[..., :h, :],
+                                        up_buf[..., :p - h, :]], dim=-2))
+            from_next.append(torch.cat([dn_buf[..., h:, :],
+                                        zeros[..., :h, :]], dim=-2))
         else:
             from_prev.append(zeros)
             from_next.append(zeros)
-    return torch.cat([x_local] + from_prev + from_next, dim=1)
+    return torch.cat([x_local] + from_prev + from_next, dim=-1)
 
 
 def apply_local(x_local: torch.Tensor, cols: torch.Tensor,
@@ -271,18 +277,19 @@ def halo_messages(x_local: torch.Tensor, send_up: torch.Tensor,
     ``(peer, tag, tensor)`` and ``(peer, tag, like)``.  For each hop h it
     sends its rows ``send_up[h-1]`` to rank+h and ``send_dn[h-1]`` to
     rank-h, and receives one ``max_send`` buffer from each of them; no
-    message goes past the domain's ends."""
+    message goes past the domain's ends.  A slab ``x_local`` (s, nxl)
+    sends each set of every column in one (s, max_send) message."""
     hops, max_send = send_up.shape
-    like = x_local.new_empty(max_send)
+    like = x_local.new_empty(tuple(x_local.shape[:-1]) + (max_send,))
     sends, recvs = [], []
     for h in range(1, hops + 1):
         if rank + h < size:
             sends.append((rank + h, halo_tag(h, True),
-                          x_local[send_up[h - 1].long()]))
+                          x_local[..., send_up[h - 1].long()]))
             recvs.append((rank + h, halo_tag(h, False), like))
         if rank - h >= 0:
             sends.append((rank - h, halo_tag(h, False),
-                          x_local[send_dn[h - 1].long()]))
+                          x_local[..., send_dn[h - 1].long()]))
             recvs.append((rank - h, halo_tag(h, True), like))
     return sends, recvs
 
@@ -292,15 +299,16 @@ def halo_assemble(x_local: torch.Tensor, hops: int, max_send: int,
     """The extended vector [own | from rank-1, ..., rank-hops | from
     rank+1, ..., rank+hops] from the buffers ``got`` that arrived for
     ``recvs`` (as :func:`halo_messages` listed them), zeros where no peer
-    exists: the one-shard form of :func:`halo_exchange`."""
-    zero = x_local.new_zeros(max_send)
+    exists: the one-shard form of :func:`halo_exchange` (for a slab
+    (s, nxl), each column's)."""
+    zero = x_local.new_zeros(tuple(x_local.shape[:-1]) + (max_send,))
     from_prev, from_next = [zero] * hops, [zero] * hops
     for (peer, _, _), buf in zip(recvs, got):
         if peer < rank:
             from_prev[rank - peer - 1] = buf
         else:
             from_next[peer - rank - 1] = buf
-    return torch.cat([x_local] + from_prev + from_next)
+    return torch.cat([x_local] + from_prev + from_next, dim=-1)
 
 
 def halo_exchange_shard(x_local: torch.Tensor, send_up: torch.Tensor,
@@ -317,13 +325,14 @@ def halo_exchange_shard(x_local: torch.Tensor, send_up: torch.Tensor,
 def apply_extended(xe: torch.Tensor, cols: torch.Tensor, vals: torch.Tensor,
                    use_kernel: bool = False) -> torch.Tensor:
     """One shard's ELL product over its extended vector ``xe`` (cols
-    (nxl, w) index it): through the ELL kernel with ``use_kernel=True``,
-    otherwise ``ell_rowsum``'s chain, as :func:`apply_local` per shard."""
+    (nxl, w) index it), or over each row of a slab (s, ext): through the
+    ELL kernel with ``use_kernel=True``, otherwise ``ell_rowsum``'s chain,
+    as :func:`apply_local` per shard."""
     if use_kernel:
         from repro_torch.kernels import ops as kops
 
         return kops.ell_spmv_apply(xe, cols, vals)
-    return ell_rowsum(vals.to(xe.dtype), xe[cols.long()])
+    return ell_rowsum(vals.to(xe.dtype), xe[..., cols.long()])
 
 
 def apply_shard(x_local: torch.Tensor, cols: torch.Tensor, vals: torch.Tensor,

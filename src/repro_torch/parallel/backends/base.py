@@ -11,12 +11,7 @@ from typing import ClassVar
 from repro_torch.core import METHODS
 from repro_torch.core.types import SolveResult
 
-__all__ = ["METHODS", "ReductionBackend", "BATCHED_OVER_RANKS"]
-
-# Where the batched solves and the serve layer over ranks stand in the
-# roadmap (every refusal of them names it).
-BATCHED_OVER_RANKS = ("batched solves and serving over ranks are not "
-                      "ported yet (ROADMAP.md, queue 1 item 5b)")
+__all__ = ["METHODS", "ReductionBackend"]
 
 
 class ReductionBackend(abc.ABC):

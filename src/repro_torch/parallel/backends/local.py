@@ -8,19 +8,21 @@ oracle over ``virtual_shards`` contiguous slices
 whole-vector superkernel's partial in slot 0, as the JAX package's does.
 
 Batched multi-RHS solves (``solve_batched``, ``make_batched_solver``) and
-the serving layer's slab programs (``make_slab_program``) run on the
-monolithic dot block: the (s, K) block of a slab is one in-process
-reduction (``types.dot_block_rows``), or the slab superkernel's partials.
-A slab takes its right-hand sides as (s, n), one a row: the transpose of
-the JAX package's (n, s) ``B``."""
+the serving layer's slab programs (``make_slab_program``) run on either
+dot block: the (s, K) block of a slab is one in-process reduction
+(``types.dot_block_rows``) or the slab superkernel's partials, and with
+``reduction="staged"`` the ladder oracle's (s, P, K) gather buffer, the
+one-process reference of a batched staged run over P ranks (column j
+bitwise the one-column oracle solve of B[j]).  A slab takes its
+right-hand sides as (s, n), one a row: the transpose of the JAX package's
+(n, s) ``B``."""
 
 from __future__ import annotations
 
 from repro_torch.core import batched as batched_mod
 from repro_torch.core.types import SolverOps
 from repro_torch.device import as_rhs, resolve_device
-from repro_torch.parallel.backends.base import (BATCHED_OVER_RANKS, METHODS,
-                                                ReductionBackend)
+from repro_torch.parallel.backends.base import METHODS, ReductionBackend
 
 
 class LocalBackend(ReductionBackend):
@@ -71,13 +73,6 @@ class LocalBackend(ReductionBackend):
                                          dict(solver_kwargs))
 
     # -------------------------------------------------- batched multi-RHS --
-    def _slab_ops(self, op, prec) -> SolverOps:
-        if self.reduction_cfg is not None:
-            raise NotImplementedError(
-                "reduction='staged' has no batched form: " +
-                BATCHED_OVER_RANKS)
-        return self.make_ops(op, prec)
-
     def solve_batched(self, op, B, method: str = "plcg", prec=None,
                       **solver_kwargs):
         return self.make_batched_solver(op, method, prec,
@@ -87,22 +82,24 @@ class LocalBackend(ReductionBackend):
                             **solver_kwargs):
         """``B -> SolveResult`` for (s, n) right-hand sides (an array goes
         to this backend's device)."""
-        ops = self._slab_ops(op, prec)
+        ops = self.make_ops(op, prec)
         return lambda B: batched_mod.solve_batched(
             ops, as_rhs(B, self.device), method, **solver_kwargs)
 
     def make_slab_program(self, op, s: int, method: str = "plcg", prec=None,
                           chunk_iters: int = 16, dtype=None,
                           **solver_kwargs):
-        ops = self._slab_ops(op, prec)
+        ops = self.make_ops(op, prec)
         return batched_mod.slab_program(ops, s, op.n, method,
                                         dict(solver_kwargs), chunk_iters)
 
-    def run(self, fn, op, b, prec=None):
+    def run(self, fn, op, b, prec=None, x0=None):
         """``fn(ops, b)`` on this backend's ``SolverOps`` (b to its
-        device): the hook that lets a caller rewrite the ops before a
-        solve, as ``stability.governed_solve``'s ``ops_transform`` does."""
-        return fn(self.make_ops(op, prec), as_rhs(b, self.device))
+        device), or ``fn(ops, b, x0=x0)`` with a warm start: the hook that
+        lets a caller rewrite the ops before a solve, as
+        ``stability.governed_solve``'s ``ops_transform`` does."""
+        kw = {} if x0 is None else {"x0": x0}
+        return fn(self.make_ops(op, prec), as_rhs(b, self.device), **kw)
 
     def describe(self) -> str:
         if self.reduction_cfg is not None:

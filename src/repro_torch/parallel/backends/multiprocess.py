@@ -25,10 +25,16 @@ The dot block is an asynchronous ``all_reduce`` (monolithic), or the
 staged ring ladder of point-to-point hops (``reduction="staged"``), which
 is bitwise equal to its one-process reference
 (``parallel.distributed.rank_oracle_ops``; unfused, to
-``LocalBackend(reduction="staged", virtual_shards=P)``).  Batched solves
-and slab programs over ranks (queue 1 item 5b), and checkpointed,
-instrumented (``telemetry_cap > 0``) or governed solves over ranks (item
-6b) are not ported: they raise.
+``LocalBackend(reduction="staged", virtual_shards=P)``).
+
+Batched solves and slab programs run over the ranks as one column does
+(``solve_batched``, ``make_batched_solver``, ``make_slab_program``): the
+s columns' (s, 2l+1) dot block is ONE all-reduce or one ladder an
+iteration, and ``repro_torch.serve.SolverService`` serves over a backend
+of several ranks with rank 0 leading (``serve.service``).  Instrumented
+(``telemetry_cap > 0``) and governed solves return their ring and
+governor vector replicated, the same bits on every rank.  Checkpointed
+solves over ranks are not ported (queue 1 item 6b): they raise.
 """
 
 from __future__ import annotations
@@ -39,8 +45,7 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.device import as_rhs, resolve_device
-from repro_torch.parallel.backends.base import (BATCHED_OVER_RANKS, METHODS,
-                                                ReductionBackend)
+from repro_torch.parallel.backends.base import METHODS, ReductionBackend
 
 ENV_VARS = ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT")
 
@@ -109,43 +114,80 @@ class MultiprocessBackend(ReductionBackend):
             self, reduction, reduction_stages, reduction_dtype,
             self.world_size)
 
+    def _check_method(self, method: str) -> None:
+        if method not in METHODS:
+            raise ValueError(f"unknown method {method!r}; "
+                             f"available: {', '.join(METHODS)}")
+
+    def rank_problem(self, op, prec=None):
+        """This rank's ``parallel.distributed.RankProblem``: its SolverOps,
+        its block of a right-hand side's rows, and the gather of a
+        result."""
+        from repro_torch.parallel.distributed import rank_problem
+
+        return rank_problem(self.wire, op, prec, self.reduction_cfg)
+
     def solve(self, op, b, method: str = "plcg", prec=None,
               **solver_kwargs):
         """Solve A x = b over the group's ranks; every rank passes the
         same global ``op`` and ``b``.  ``x`` of the result is the whole
-        solution on every rank."""
+        solution on every rank; an instrumented or governed solve's ring
+        and governor vector are replicated."""
         from repro_torch.parallel.distributed import distributed_solve
 
-        if method not in METHODS:
-            raise ValueError(f"unknown method {method!r}; "
-                             f"available: {', '.join(METHODS)}")
+        self._check_method(method)
         ckpt = solver_kwargs.pop("checkpoint", None)
         if ckpt is not None and getattr(ckpt, "armed", True):
             raise NotImplementedError(
                 "checkpointed solves over ranks are not ported yet "
                 "(ROADMAP.md, queue 1 item 6b)")
-        if solver_kwargs.get("telemetry_cap", 0) or \
-                solver_kwargs.get("governor") is not None:
-            raise NotImplementedError(
-                "the telemetry ring and the stability governor over ranks "
-                "are not ported yet (ROADMAP.md, queue 1 item 6b)")
         return distributed_solve(self.wire, op, as_rhs(b, self.device),
                                  method=method, prec=prec,
                                  reduction=self.reduction_cfg,
                                  **solver_kwargs)
 
+    def run(self, fn, op, b, prec=None, x0=None):
+        """``fn(ops, b_local)`` on this rank's SolverOps and block of
+        ``b``'s rows (``fn(ops, b_local, x0=x0_local)`` with a warm start,
+        given whole), its SolveResult gathered: the hook
+        ``stability.governed_solve``'s ``ops_transform`` takes."""
+        rp = self.rank_problem(op, prec)
+        kw = {} if x0 is None else {"x0": rp.rows(as_rhs(x0, self.device))}
+        return rp.result(fn(rp.ops, rp.rows(as_rhs(b, self.device)), **kw))
+
     def solve_batched(self, op, B, method: str = "plcg", prec=None,
                       **solver_kwargs):
-        raise NotImplementedError(BATCHED_OVER_RANKS)
+        """Solve A X = B for the global slab B (s, n), one right-hand side
+        a row, over the ranks: ONE (s, 2l+1) dot block an iteration."""
+        from repro_torch.parallel.distributed import distributed_solve_batched
+
+        self._check_method(method)
+        return distributed_solve_batched(
+            self.wire, op, as_rhs(B, self.device), method=method, prec=prec,
+            reduction=self.reduction_cfg, **solver_kwargs)
 
     def make_batched_solver(self, op, method: str = "plcg", prec=None,
                             **solver_kwargs):
-        raise NotImplementedError(BATCHED_OVER_RANKS)
+        """``B -> SolveResult`` over the ranks, the partition built once."""
+        from repro_torch.core import batched as batched_mod
+
+        self._check_method(method)
+        rp = self.rank_problem(op, prec)
+        return lambda B: rp.result(batched_mod.solve_batched(
+            rp.ops, rp.rows(as_rhs(B, self.device)), method,
+            **solver_kwargs))
 
     def make_slab_program(self, op, s: int, method: str = "plcg", prec=None,
                           chunk_iters: int = 16, dtype=None,
                           **solver_kwargs):
-        raise NotImplementedError(BATCHED_OVER_RANKS)
+        """The serving layer's slab program over the ranks
+        (``parallel.distributed.distributed_slab_program``)."""
+        from repro_torch.parallel.distributed import distributed_slab_program
+
+        self._check_method(method)
+        return distributed_slab_program(
+            self.wire, op, s, method, prec, reduction=self.reduction_cfg,
+            chunk_iters=chunk_iters, **solver_kwargs)
 
     # ------------------------------------------------- wire introspection --
     def hop_wire(self) -> str:

@@ -34,7 +34,7 @@ from __future__ import annotations
 
 import collections
 import dataclasses
-from typing import Callable
+from typing import Callable, NamedTuple
 
 import numpy as np
 import torch
@@ -53,7 +53,9 @@ from repro_torch.linalg.sparse import SparseOp
 
 __all__ = ["halo_first_dim", "plane_messages", "halo_planes",
            "fused_spmv_local", "shard_arrays", "partitioned_solver_ops",
-           "stacked_fused_factory", "rank_oracle_ops", "distributed_solve",
+           "stacked_fused_factory", "rank_oracle_ops",
+           "distributed_solve", "distributed_solve_batched",
+           "distributed_slab_program", "rank_problem", "owned_rows",
            "AllReduceHandles"]
 
 
@@ -64,82 +66,95 @@ __all__ = ["halo_first_dim", "plane_messages", "halo_planes",
 def halo_first_dim(z_local: torch.Tensor, plane: int) -> torch.Tensor:
     """Every shard's halo-extended operand of an x-partitioned grid, in
     one process.  ``z_local`` is the (P, nxl * plane) stack of the shards'
-    own planes; shard s's operand is [last plane of s-1 | own | first plane
-    of s+1], with zeros where no neighbour exists (the homogeneous
-    Dirichlet boundary).  Returns (P, (nxl + 2) * plane)."""
-    p = z_local.shape[0]
-    g = z_local.reshape(p, -1, plane)
-    zero = g.new_zeros((1, 1, plane))
-    above = torch.cat([zero, g[:-1, -1:]])
-    below = torch.cat([g[1:, :1], zero])
-    return torch.cat([above, g, below], dim=1).reshape(p, -1)
+    own planes, or a slab's (s, P, nxl * plane); shard s's operand is
+    [last plane of s-1 | own | first plane of s+1], with zeros where no
+    neighbour exists (the homogeneous Dirichlet boundary).  Returns
+    (P, (nxl + 2) * plane), or (s, P, ...)."""
+    g = z_local.reshape(tuple(z_local.shape[:-1]) + (-1, plane))
+    zero = g.new_zeros(tuple(g.shape[:-3]) + (1, 1, plane))
+    above = torch.cat([zero, g[..., :-1, -1:, :]], dim=-3)
+    below = torch.cat([g[..., 1:, :1, :], zero], dim=-3)
+    return torch.cat([above, g, below], dim=-2).reshape(
+        tuple(z_local.shape[:-1]) + (-1,))
 
 
-def plane_messages(g: torch.Tensor, rank: int, size: int):
-    """Rank ``rank``'s boundary-plane messages for a grid ``g`` (nxl, ...):
-    its last plane goes to rank+1 (that rank's plane above), its first to
-    rank-1 (its plane below), and one plane arrives from each neighbour.
+def plane_messages(g: torch.Tensor, rank: int, size: int, x_axis: int = 0):
+    """Rank ``rank``'s boundary-plane messages for a grid ``g`` whose axis
+    ``x_axis`` is the partitioned one ((nxl, ...), or a slab's (s, nxl,
+    ...) with ``x_axis=1``, every column's plane in one message): its last
+    plane goes to rank+1 (that rank's plane above), its first to rank-1
+    (its plane below), and one plane arrives from each neighbour.
     ``(sends, recvs)`` as ``partition.halo_messages`` lists them."""
     sends, recvs = [], []
     up, dn = partition_mod.halo_tag(1, True), partition_mod.halo_tag(1, False)
+    last, first = g.select(x_axis, -1), g.select(x_axis, 0)
     if rank + 1 < size:
-        sends.append((rank + 1, up, g[-1]))
-        recvs.append((rank + 1, dn, g[-1]))
+        sends.append((rank + 1, up, last))
+        recvs.append((rank + 1, dn, last))
     if rank > 0:
-        sends.append((rank - 1, dn, g[0]))
-        recvs.append((rank - 1, up, g[0]))
+        sends.append((rank - 1, dn, first))
+        recvs.append((rank - 1, up, first))
     return sends, recvs
 
 
-def halo_planes(g: torch.Tensor, wire) -> tuple[torch.Tensor, torch.Tensor]:
-    """Exchange one boundary plane along the partitioned first grid dim
-    over ``wire`` (the JAX package's ``_halo_first_dim``): returns this
-    rank's (plane above, plane below), each (1, ...), zeros where no
-    neighbour exists."""
-    sends, recvs = plane_messages(g, wire.rank, wire.size)
+def halo_planes(g: torch.Tensor, wire, x_axis: int = 0
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Exchange one boundary plane along the partitioned grid axis
+    ``x_axis`` over ``wire`` (the JAX package's ``_halo_first_dim``):
+    returns this rank's (plane above, plane below), each of extent 1 on
+    ``x_axis``, zeros where no neighbour exists."""
+    sends, recvs = plane_messages(g, wire.rank, wire.size, x_axis)
     got = wire.exchange(sends, recvs, kind="halo") if sends else []
-    above = below = torch.zeros_like(g[:1])
+    above = below = torch.zeros_like(g.narrow(x_axis, 0, 1))
     for (peer, _, _), buf in zip(recvs, got):
         if peer < wire.rank:
-            above = buf[None]
+            above = buf.unsqueeze(x_axis)
         else:
-            below = buf[None]
+            below = buf.unsqueeze(x_axis)
     return above, below
 
 
 # --------------------------------------------------------------------------
-# Shard applies: plain torch, as in the JAX package.
+# Shard applies: plain torch, as in the JAX package.  Each takes one
+# vector (nl,) or a slab (s, nl), one vector a row; ``halo(g)`` returns the
+# planes above and below the grid g, (nxl, ...) or (s, nxl, ...).
 # --------------------------------------------------------------------------
 
+def _grid(x, dims):
+    return x.reshape(tuple(x.shape[:-1]) + tuple(dims))
+
+
 def _apply_2d5_local(x, nxl: int, ny: int, halo) -> torch.Tensor:
-    g = x.reshape(nxl, ny)
+    g = _grid(x, (nxl, ny))
     up, dn = halo(g)
-    gp = torch.cat([up, g, dn])                        # (nxl+2, ny)
+    gp = torch.cat([up, g, dn], dim=-2)                # (..., nxl+2, ny)
     gy = F.pad(g, (1, 1))
-    out = 4.0 * g - gp[:-2] - gp[2:] - gy[:, :-2] - gy[:, 2:]
-    return out.reshape(-1)
+    out = (4.0 * g - gp[..., :-2, :] - gp[..., 2:, :] - gy[..., :-2]
+           - gy[..., 2:])
+    return out.reshape(x.shape)
 
 
 def _apply_3d7_local(x, nxl: int, ny: int, nz: int, eps_z: float,
                      halo) -> torch.Tensor:
-    g = x.reshape(nxl, ny, nz)
+    g = _grid(x, (nxl, ny, nz))
     up, dn = halo(g)
-    gp = torch.cat([up, g, dn])
+    gp = torch.cat([up, g, dn], dim=-3)
     gy = F.pad(g, (0, 0, 1, 1))
     gz = F.pad(g, (1, 1))
     ez = torch.full((), eps_z, dtype=x.dtype, device=x.device)
     out = ((4.0 + 2.0 * ez) * g
-           - gp[:-2] - gp[2:]
-           - gy[:, :-2, :] - gy[:, 2:, :]
-           - ez * gz[:, :, :-2] - ez * gz[:, :, 2:])
-    return out.reshape(-1)
+           - gp[..., :-2, :, :] - gp[..., 2:, :, :]
+           - gy[..., :-2, :] - gy[..., 2:, :]
+           - ez * gz[..., :-2] - ez * gz[..., 2:])
+    return out.reshape(x.shape)
 
 
 def _apply_3d27_local(x, nxl: int, ny: int, nz: int, centre: float,
                       halo) -> torch.Tensor:
-    g = x.reshape(nxl, ny, nz)
+    g = _grid(x, (nxl, ny, nz))
     up, dn = halo(g)
-    gp = F.pad(torch.cat([up, g, dn]), (1, 1, 1, 1))   # pad y, z of halo too
+    # pad y, z of the halo too
+    gp = F.pad(torch.cat([up, g, dn], dim=-3), (1, 1, 1, 1))
     out = centre * g
     for di in (-1, 0, 1):
         for dj in (-1, 0, 1):
@@ -148,9 +163,9 @@ def _apply_3d27_local(x, nxl: int, ny: int, nz: int, centre: float,
                 if order == 0:
                     continue
                 w = {1: 1.0, 2: 0.5, 3: 0.25}[order]
-                out = out - w * gp[1 + di:1 + di + nxl, 1 + dj:1 + dj + ny,
-                                   1 + dk:1 + dk + nz]
-    return out.reshape(-1)
+                out = out - w * gp[..., 1 + di:1 + di + nxl,
+                                   1 + dj:1 + dj + ny, 1 + dk:1 + dk + nz]
+    return out.reshape(x.shape)
 
 
 # --------------------------------------------------------------------------
@@ -193,9 +208,9 @@ def _partition_op(op: LinearOperator, n_shards: int, reorder: bool = True):
 
         return {"d": op.d}, build, None
 
-    def planes(halo):
+    def planes(halo, nd):
         return halo if callable(halo) else \
-            (lambda g: halo_planes(g, halo))
+            (lambda g: halo_planes(g, halo, g.dim() - nd))
 
     if isinstance(op, (Stencil2D5, Stencil3D7, Stencil3D27)):
         if op.nx % n_shards:
@@ -204,15 +219,15 @@ def _partition_op(op: LinearOperator, n_shards: int, reorder: bool = True):
         nxl = op.nx // n_shards
     if isinstance(op, Stencil2D5):
         return {}, lambda loc, halo: (
-            lambda x: _apply_2d5_local(x, nxl, op.ny, planes(halo))), None
+            lambda x: _apply_2d5_local(x, nxl, op.ny, planes(halo, 2))), None
     if isinstance(op, Stencil3D7):
         return {}, lambda loc, halo: (
             lambda x: _apply_3d7_local(x, nxl, op.ny, op.nz, op.eps_z,
-                                       planes(halo))), None
+                                       planes(halo, 3))), None
     if isinstance(op, Stencil3D27):
         return {}, lambda loc, halo: (
             lambda x: _apply_3d27_local(x, nxl, op.ny, op.nz, op.centre,
-                                        planes(halo))), None
+                                        planes(halo, 3))), None
     raise TypeError(f"no distributed implementation for {type(op).__name__}")
 
 
@@ -315,7 +330,9 @@ def _one_shard(loc: dict) -> dict:
 
 
 def _wire_prepare(op, loc: dict, n_shards: int, wire):
-    """``prepare(z_top)`` of a rank's halo plug-in: the wire halo."""
+    """``prepare(z_top)`` of a rank's halo plug-in: the wire halo, of one
+    ring-top row (nl,) or of a slab's (s, nl), every column's boundary in
+    one message a neighbour."""
     if isinstance(op, SparseOp):
         su, sd = loc["send_up"], loc["send_dn"]
         return lambda z: partition_mod.halo_exchange_shard(z, su, sd, wire)
@@ -324,9 +341,11 @@ def _wire_prepare(op, loc: dict, n_shards: int, wire):
                                         else (op.ny, op.nz))
 
         def prep(z):
-            g = z.reshape(shape)
-            up, dn = halo_planes(g, wire)
-            return torch.cat([up, g, dn]).reshape(-1)
+            g = _grid(z, shape)
+            ax = g.dim() - len(shape)
+            up, dn = halo_planes(g, wire, ax)
+            return torch.cat([up, g, dn], dim=ax).reshape(
+                tuple(z.shape[:-1]) + (-1,))
 
         return prep
     return None
@@ -368,9 +387,11 @@ def stacked_fused_factory(op, prec, n_shards: int):
     phase writes that row).  Row r of ``partials`` is what rank r's own
     superkernel gives, so the reference's gather buffer is a staged P-rank
     run's.  Each shard's superkernel updates its block of columns in
-    place (the kernel takes the slab's row stride).  None where a rank has
-    no fused path (or the operator does not split into ``n_shards``
-    blocks)."""
+    place (the kernel takes the slab's row stride).  A batched solve's
+    3-D slab (s, NV, n) runs the same way, every shard's plug-in on its
+    block of every column in the slab form, the partials (s, P, 2l+1).
+    None where a rank has no fused path (or the operator does not split
+    into ``n_shards`` blocks)."""
     if not _pointwise_inv_diag(prec, {"inv_diag": None})[0]:
         return None
     if getattr(op, "use_kernel", False) or not isinstance(
@@ -398,31 +419,31 @@ def stacked_fused_factory(op, prec, n_shards: int):
 
             def stack(z):
                 return partition_mod.halo_exchange(
-                    z.reshape(n_shards, -1), su, sd)
+                    _grid(z, (n_shards, -1)), su, sd)
         elif isinstance(op, DiagonalOp):
             stack = None             # no halo
         else:
             plane = op.ny if isinstance(op, Stencil2D5) else op.ny * op.nz
 
             def stack(z):
-                return halo_first_dim(z.reshape(n_shards, -1), plane)
+                return halo_first_dim(_grid(z, (n_shards, -1)), plane)
         pos = fi.idx_layout(layout.l)["z_top"]
 
         def fiter(S, idx, scal):
             if stack is not None:
-                sel = idx[pos:pos + 1] if isinstance(idx, torch.Tensor) \
-                    else torch.tensor(idx[pos:pos + 1], device=S.device)
-                current["ext"] = stack(S.index_select(0, sel)[0])
-            nl = S.shape[1] // n_shards
+                ext = stack(fi.ring_top(S, idx, pos))
+                current["ext"] = [ext.select(-2, r).contiguous()
+                                  for r in range(n_shards)]
+            nl = S.shape[-1] // n_shards
             parts = []
             for r in range(n_shards):
-                view = S[:, r * nl:(r + 1) * nl]  # the kernel writes it
+                view = S[..., r * nl:(r + 1) * nl]  # the kernel writes it
                 S_r, p_r = fiters[r](view, idx, scal)
                 if S_r is not view:               # the plain version's copy
                     view.copy_(S_r)
                 parts.append(p_r)
             current.clear()
-            return S, torch.stack(parts)
+            return S, torch.stack(parts, dim=-2)
 
         return fiter
 
@@ -456,16 +477,19 @@ class AllReduceHandles:
     its request; ``wait`` completes it (the MPI_Wait).
 
     The solvers hold a handle either directly (a blocking start and wait:
-    the initial norm, a restart's block, Ghysels p-CG's one block) or as a
-    copy in p(l)-CG's D ring, waited l iterations later.  So ``start``
-    returns a fresh alias of a zero token, and the requests stay here in
-    issue order: a wait on a token returned by ``start`` completes that
-    request (and the older ones, which a restart abandoned); a wait on a
-    ring slot completes the oldest request, the one issued l iterations
-    earlier; with none in flight (a pipeline-fill slot) it returns the
-    slot.  The all-reduced tensor is never copied before its wait, and on
-    NCCL a wait orders the caller's stream after the collective without
-    blocking the host."""
+    the initial norm, a restart's block, a slab column's init, Ghysels
+    p-CG's one block) or as a copy in p(l)-CG's D ring, waited l
+    iterations later.  So ``start`` returns a fresh alias of a zero token,
+    and the requests stay here in issue order: a wait on a token returned
+    by ``start`` completes that request alone; a wait on a ring slot
+    (``advanced`` = l - 1) completes the request issued l ring starts
+    earlier, the (advanced + 1)-th newest in flight, and drops the older
+    ones, which a restart abandoned (a slab's inject or column restart
+    abandons none: its blocking pairs leave the ring's requests alone);
+    with none in flight (a pipeline-fill slot) it returns the slot.  The
+    all-reduced tensor is never copied before its wait, and on NCCL a wait
+    orders the caller's stream after the collective without blocking the
+    host."""
 
     def __init__(self, wire):
         self.wire = wire
@@ -482,13 +506,14 @@ class AllReduceHandles:
         return handle
 
     def wait(self, handle: torch.Tensor, advanced: int = 0) -> torch.Tensor:
-        for pos, (tok, _) in enumerate(self.pending):
+        for pos, (tok, req) in enumerate(self.pending):
             if tok is handle:
-                for _ in range(pos):
-                    self.pending.popleft()[1].wait()
-                return self.pending.popleft()[1].wait()
+                del self.pending[pos]
+                return req.wait()
         if not self.pending:
             return handle
+        for _ in range(max(len(self.pending) - advanced - 1, 0)):
+            self.pending.popleft()[1].wait()
         return self.pending.popleft()[1].wait()
 
 
@@ -530,20 +555,71 @@ def partitioned_solver_ops(op, prec, n_shards: int, reduction=None):
 
 def _permutation_wrappers(perm):
     """(pre, post) for a partition-imposed row ordering: ``pre`` maps an
-    (n,) operand into the permuted basis, ``post`` maps a SolveResult's
-    (gathered) solution back.  Pass-throughs for None."""
+    (n,) operand, or an (s, n) slab, into the permuted basis, ``post``
+    maps a SolveResult's (gathered) solution back.  Pass-throughs for
+    None."""
     if perm is None:
         return (lambda b: b), (lambda res: res)
     inv = np.empty_like(perm)
     inv[perm] = np.arange(perm.size)
 
     def pre(b):
-        return b[torch.as_tensor(perm, device=b.device)]
+        return b[..., torch.as_tensor(perm, device=b.device)]
 
     def post(res: SolveResult) -> SolveResult:
-        return res._replace(x=res.x[torch.as_tensor(inv, device=res.x.device)])
+        return res._replace(
+            x=res.x[..., torch.as_tensor(inv, device=res.x.device)])
 
     return pre, post
+
+
+def owned_rows(op, n_shards: int, rank: int) -> np.ndarray:
+    """The operator-order indices of the rows rank ``rank`` of
+    ``n_shards`` holds: its contiguous block of the partition's order
+    (``perm[new] = old`` where the partition imposed one)."""
+    _, _, perm = _partition_op(op, n_shards)
+    nl = op.n // n_shards
+    rows = np.arange(rank * nl, (rank + 1) * nl)
+    return rows if perm is None else np.asarray(perm)[rows]
+
+
+class RankProblem(NamedTuple):
+    """One rank's share of a solve over ``wire``'s group: its ``ops``, the
+    map ``rows`` from a global right-hand side (n,) or slab (s, n) to the
+    rank's block of rows in the partition's order, and ``result``, which
+    gathers a SolveResult's x, (nl,) or (s, nl), into the whole solution
+    in the operator's order (one all-gather)."""
+
+    ops: SolverOps
+    rows: Callable[[torch.Tensor], torch.Tensor]
+    result: Callable[[SolveResult], SolveResult]
+    nl: int
+
+
+def rank_problem(wire, op, prec=None, reduction=None) -> RankProblem:
+    """Rank ``wire.rank``'s :class:`RankProblem` for ``op`` and ``prec``
+    (every rank passes the same global ones) with the monolithic dot block
+    or, with ``reduction`` a ``StagedConfig``, the staged ladder."""
+    p = wire.size
+    if op.n % p:
+        raise ValueError(f"n = {op.n} does not split over {p} ranks")
+    arrays, build, perm = partitioned_solver_ops(op, prec, p,
+                                                 reduction=reduction)
+    pre, post = _permutation_wrappers(perm)
+    ops = build(shard_arrays(arrays, p, wire.rank), wire)
+    nl = op.n // p
+    lo = wire.rank * nl
+
+    def rows(b):
+        if b.shape[-1] != op.n:
+            raise ValueError(f"right-hand side of length {b.shape[-1]}, "
+                             f"want {op.n}")
+        return pre(b)[..., lo:lo + nl].contiguous()
+
+    def result(res: SolveResult) -> SolveResult:
+        return post(res._replace(x=wire.all_gather(res.x, dim=-1)))
+
+    return RankProblem(ops=ops, rows=rows, result=result, nl=nl)
 
 
 def distributed_solve(wire, op, b, method: str = "plcg", prec=None,
@@ -551,23 +627,64 @@ def distributed_solve(wire, op, b, method: str = "plcg", prec=None,
     """Solve A x = b with the chosen CG variant on this rank's block of
     rows; every rank of ``wire``'s group calls it with the same global
     ``op``, ``b`` and arguments.  ``kwargs`` go to the solver (l, tol,
-    maxit, sigmas, fused_iteration, unroll, ...); ``reduction``
-    (StagedConfig or None) picks the staged ladder.  Every host decision
-    of the solvers reads reduced values only, which every rank holds
-    bit for bit, so the ranks take the same branches.  The result's x is
-    the whole solution in the operator's order (one all-gather at the
-    end)."""
+    maxit, sigmas, fused_iteration, unroll, telemetry_cap, governor, x0
+    (whole, like b), ...); ``reduction`` (StagedConfig or None) picks the
+    staged ladder.  Every
+    host decision of the solvers reads reduced values only, which every
+    rank holds bit for bit, so the ranks take the same branches; the
+    telemetry ring and the governor vector are built from those values
+    only, so they come back the same on every rank (replicated, the JAX
+    package's ``P()`` out-specs).  The result's x is the whole solution in
+    the operator's order (one all-gather at the end)."""
     if method not in METHODS:
         raise ValueError(f"unknown method {method!r}; "
                          f"available: {', '.join(METHODS)}")
-    p = wire.size
-    if b.shape[0] % p:
-        raise ValueError(f"n = {b.shape[0]} does not split over {p} ranks")
-    arrays, build, perm = partitioned_solver_ops(op, prec, p,
-                                                 reduction=reduction)
-    pre, post = _permutation_wrappers(perm)
-    ops = build(shard_arrays(arrays, p, wire.rank), wire)
-    nl = b.shape[0] // p
-    b_local = pre(b)[wire.rank * nl:(wire.rank + 1) * nl].contiguous()
-    res = METHODS[method](ops, b_local, kwargs)
-    return post(res._replace(x=wire.all_gather(res.x)))
+    rp = rank_problem(wire, op, prec, reduction)
+    if kwargs.get("x0") is not None:          # a whole warm start
+        kwargs["x0"] = rp.rows(torch.as_tensor(kwargs["x0"], device=b.device,
+                                               dtype=b.dtype))
+    return rp.result(METHODS[method](rp.ops, rp.rows(b), kwargs))
+
+
+def distributed_solve_batched(wire, op, B, method: str = "plcg", prec=None,
+                              reduction=None, **kwargs) -> SolveResult:
+    """Solve A X = B for every row of the global slab B (s, n), one
+    right-hand side a row, in lock step on this rank's block of rows (the
+    JAX package's ``distributed_solve_batched``, its (n, s) B transposed):
+    ONE dot block of the s columns an iteration, an async all-reduce of
+    the (s, 2l+1) block or one ladder of it.  The result's tensors carry a
+    leading s axis; x is (s, n), gathered, in the operator's order."""
+    from repro_torch.core import batched as batched_mod
+
+    if B.dim() != 2:
+        raise ValueError(f"B must be (s, n), got {tuple(B.shape)}")
+    rp = rank_problem(wire, op, prec, reduction)
+    return rp.result(batched_mod.solve_batched(rp.ops, rp.rows(B), method,
+                                               **kwargs))
+
+
+def distributed_slab_program(wire, op, s: int, method: str = "plcg",
+                             prec=None, reduction=None,
+                             chunk_iters: int = 16, **kwargs):
+    """The serving layer's slab program over ranks (the JAX package's
+    ``ShardMapBackend.make_slab_program``): every piece takes the GLOBAL
+    (s, n) slab B in the operator's order and runs ``core.batched``'s
+    program on this rank's block of its rows; the state lives in the
+    partition's order on each rank, its vector leaves (``vector_mask``)
+    the rank's rows, the rest replicated.  ``status`` reads replicated
+    values only; ``extract`` gathers x (one all-gather).  Every rank must
+    make the same calls in the same order (``serve.service``'s command
+    does that for a service)."""
+    from repro_torch.core import batched as batched_mod
+
+    rp = rank_problem(wire, op, prec, reduction)
+    prog = batched_mod.slab_program(rp.ops, s, rp.nl, method, dict(kwargs),
+                                    chunk_iters)
+    rows = rp.rows
+    return prog._replace(
+        n=op.n,
+        init=lambda B: prog.init(rows(B)),
+        chunk=lambda B, st: prog.chunk(rows(B), st),
+        inject=lambda B, st, mask: prog.inject(rows(B), st, mask),
+        status=lambda B, st: prog.status(rows(B), st),
+        extract=lambda B, st: rp.result(prog.extract(rows(B), st)))

@@ -15,6 +15,12 @@ the wait sums the gathered partials IN RANK ORDER.  Two properties follow:
     and the wait accumulates the fp32 partials into an fp64 compensated
     (Kahan) sum, so the error stays at one fp32 rounding per partial.
 
+A slab of s right-hand sides (``core.batched``) carries each column's
+block in one payload: the partials are (s, K), one row a column, and every
+gather buffer puts the shard axis just before the K dot entries, (P, K) for
+one column and (s, P, K) for a slab (one (s, K) message a hop, whatever s
+is, summed in the same rank order as one column).
+
 The ladder keeps its schedule apart from its transport.
 :func:`ladder_step` is a pure function: rank r's hops of one advance
 step, each a (send slot, receive slot, next rank, previous rank) tuple.
@@ -111,22 +117,25 @@ def hop_groups(n_shards: int, stages: int) -> list[list[int]]:
 
 def ordered_reduce(gathered: torch.Tensor, out_dtype: torch.dtype,
                    compensated: bool) -> torch.Tensor:
-    """Sum the (P, K[, s]) gathered partials over shard rank 0..P-1.
+    """Sum the gathered partials, (P, K) or a slab's (s, P, K), over shard
+    rank 0..P-1 (the axis before the dot entries).
 
     The explicit rank-ascending add chain is the determinism anchor: the
-    same order on every shard and in the local oracle.  ``compensated``
-    switches to Kahan accumulation in ``out_dtype`` (the fp32-payload
-    path: one compensated fp64 sum of P fp32 partials)."""
+    same order on every shard and in the local oracle, and for a slab the
+    same for every column as for one.  ``compensated`` switches to Kahan
+    accumulation in ``out_dtype`` (the fp32-payload path: one compensated
+    fp64 sum of P fp32 partials)."""
+    p = gathered.shape[-2]
     if not compensated:
-        acc = gathered[0].to(out_dtype)
-        for k in range(1, gathered.shape[0]):
-            acc = acc + gathered[k].to(out_dtype)
+        acc = gathered.select(-2, 0).to(out_dtype)
+        for k in range(1, p):
+            acc = acc + gathered.select(-2, k).to(out_dtype)
         return acc
-    acc = torch.zeros(gathered.shape[1:], dtype=out_dtype,
-                      device=gathered.device)
+    acc = torch.zeros(gathered.shape[:-2] + gathered.shape[-1:],
+                      dtype=out_dtype, device=gathered.device)
     comp = torch.zeros_like(acc)
-    for k in range(gathered.shape[0]):
-        y = gathered[k].to(out_dtype) - comp
+    for k in range(p):
+        y = gathered.select(-2, k).to(out_dtype) - comp
         t = acc + y
         comp = (t - acc) - y
         acc = t
@@ -166,30 +175,41 @@ def ladder_step(rank: int, n_shards: int, stages: int,
             for k in hop_groups(p, stages)[step]]
 
 
+def _gather_buffer(partials: torch.Tensor, cfg: StagedConfig,
+                   slot: int) -> torch.Tensor:
+    """A fresh gather buffer of the wire dtype for ``partials`` (K,) or
+    (s, K): (P, K) or (s, P, K), slot ``slot`` filled, zeros elsewhere."""
+    wire = cfg.wire_dtype(partials.dtype)
+    shape = tuple(partials.shape[:-1]) + (cfg.n_shards, partials.shape[-1])
+    buf = torch.zeros(shape, dtype=wire, device=partials.device)
+    buf.select(-2, slot).copy_(partials)
+    return buf
+
+
 def staged_start(partials: torch.Tensor, cfg: StagedConfig,
                  rank: int) -> torch.Tensor:
-    """Park this rank's dot-block partials in a fresh (P, K[, s]) gather
-    buffer of the wire dtype, own slot filled: the posted, not yet
-    progressed Iallreduce.  Nothing goes on the wire here."""
-    wire = cfg.wire_dtype(partials.dtype)
-    buf = torch.zeros((cfg.n_shards,) + tuple(partials.shape), dtype=wire,
-                      device=partials.device)
-    buf[rank] = partials.to(wire)
-    return buf
+    """Park this rank's dot-block partials, (K,) or a slab's (s, K), in a
+    fresh gather buffer of the wire dtype, (P, K) or (s, P, K), own slot
+    filled: the posted, not yet progressed Iallreduce.  Nothing goes on
+    the wire here."""
+    return _gather_buffer(partials, cfg, rank)
 
 
 def staged_advance(handle: torch.Tensor, step: int, cfg: StagedConfig,
                    wire) -> torch.Tensor:
     """Run advance step ``step`` of the ladder on ``handle`` in place:
     each of its hops is one send to the next rank and one receive from the
-    previous one (``wire.exchange``, tag ``HOP_TAG + k``).  Steps past the
-    ladder are a no-op, so solvers can advance unconditionally."""
+    previous one (``wire.exchange``, tag ``HOP_TAG + k``), a slot of the
+    shard axis: (K,) for one column, (s, K) for a slab, in one message.
+    Steps past the ladder are a no-op, so solvers can advance
+    unconditionally."""
     for hop in ladder_step(wire.rank, cfg.n_shards, cfg.stages, step):
         tag = HOP_TAG + hop.k
         (got,) = wire.exchange(
-            [(hop.send_to, tag, handle[hop.send_slot])],
-            [(hop.recv_from, tag, handle[hop.recv_slot])], kind="hop")
-        handle[hop.recv_slot] = got
+            [(hop.send_to, tag, handle.select(-2, hop.send_slot))],
+            [(hop.recv_from, tag, handle.select(-2, hop.recv_slot))],
+            kind="hop")
+        handle.select(-2, hop.recv_slot).copy_(got)
     return handle
 
 
@@ -209,7 +229,7 @@ def staged_ops_pieces(cfg: StagedConfig, wire, solver_dtype=None) -> dict:
     computes the local partials with ``dot_block_rows`` (the expression
     every substrate uses) and parks them; ``advance``/``wait`` drive the
     ladder over ``wire``; ``handle_zeros`` is the (P, K) wire-dtype shape
-    of an in-flight D-ring slot; ``combine_partials`` parks the
+    of an in-flight D-ring slot (a slab's ring holds (s, P, K) slots); ``combine_partials`` parks the
     superkernel's partials in the same ladder."""
     out_default = torch.float64 if solver_dtype is None else solver_dtype
 
@@ -238,7 +258,9 @@ def staged_ops_pieces(cfg: StagedConfig, wire, solver_dtype=None) -> dict:
 
 def oracle_start(mat: torch.Tensor, vec: torch.Tensor,
                  cfg: StagedConfig) -> torch.Tensor:
-    """Local partials of all ``n_shards`` virtual slices at once.
+    """Local partials of all ``n_shards`` virtual slices at once: (K, n)
+    and (n,) give the (P, K) gather buffer, a slab's (s, K, n) and (s, n)
+    the (s, P, K) one.
 
     The vector axis splits into P contiguous slices, the row blocks a
     P-shard partition owns, and each slice's partial is the same
@@ -246,39 +268,34 @@ def oracle_start(mat: torch.Tensor, vec: torch.Tensor,
     is a staged P-shard run's final buffer and ``ordered_reduce`` finishes
     it identically."""
     p = cfg.n_shards
-    n = vec.shape[0]
+    n = vec.shape[-1]
     if n % p:
         raise ValueError(f"oracle needs n divisible by virtual shards "
                          f"({n} % {p})")
     wire = cfg.wire_dtype(vec.dtype)
     nl = n // p
-    mats = mat.reshape(mat.shape[0], p, nl)
-    vecs = vec.reshape(p, nl)
-    return torch.stack([dot_block_rows(mats[:, r, :], vecs[r]).to(wire)
-                        for r in range(p)])
+    return torch.stack([dot_block_rows(mat[..., r * nl:(r + 1) * nl],
+                                       vec[..., r * nl:(r + 1) * nl]).to(wire)
+                        for r in range(p)], dim=-2)
 
 
 def oracle_partials(partials: torch.Tensor,
                     cfg: StagedConfig) -> torch.Tensor:
     """Oracle ``combine_partials``: one device has ONE partial (the
-    superkernel's whole-vector sum), filed as shard 0's slot of the gather
-    buffer with zeros elsewhere."""
-    wire = cfg.wire_dtype(partials.dtype)
-    buf = torch.zeros((cfg.n_shards,) + tuple(partials.shape), dtype=wire,
-                      device=partials.device)
-    buf[0] = partials.to(wire)
-    return buf
+    superkernel's whole-vector sum, (K,) or a slab's (s, K)), filed as
+    shard 0's slot of the gather buffer with zeros elsewhere."""
+    return _gather_buffer(partials, cfg, 0)
 
 
 def oracle_gather(partials: torch.Tensor,
                   cfg: StagedConfig) -> torch.Tensor:
     """``combine_partials`` of the fused ranks' reference: the (P, K)
-    partials of the virtual shards' superkernels
+    partials of the virtual shards' superkernels, or a slab's (s, P, K)
     (``parallel.distributed.stacked_fused_factory``), one per slot, are the
     gather buffer a staged P-rank run holds after its last hop."""
-    if partials.shape[0] != cfg.n_shards or partials.dim() != 2:
-        raise ValueError(f"oracle needs ({cfg.n_shards}, K) shard partials, "
-                         f"got shape {tuple(partials.shape)}")
+    if partials.dim() not in (2, 3) or partials.shape[-2] != cfg.n_shards:
+        raise ValueError(f"oracle needs ([s,] {cfg.n_shards}, K) shard "
+                         f"partials, got shape {tuple(partials.shape)}")
     return partials.to(cfg.wire_dtype(partials.dtype))
 
 
@@ -354,7 +371,8 @@ def resolve_backend_reduction(backend, reduction: str, stages: int, dtype,
 
 def hop_payload_bytes(l: int, s: int = 1, dsize: int = 8) -> int:
     """Bytes ONE ladder hop carries: the (2l+1)[, s] dot block in the wire
-    dtype (the fp32 option halves exactly this)."""
+    dtype (the fp32 option halves exactly this); a slab's s columns ride
+    the one message (``staged_advance`` sends an (s, 2l+1) slot)."""
     return (2 * l + 1) * max(s, 1) * dsize
 
 

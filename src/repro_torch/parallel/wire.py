@@ -127,14 +127,14 @@ class Wire:
         """Blocking all-reduce (the caller's stream waits on NCCL)."""
         return self.all_reduce_async(t, op).wait()
 
-    def all_gather(self, t: torch.Tensor) -> torch.Tensor:
-        """Every rank's ``t`` concatenated in rank order along dim 0."""
+    def all_gather(self, t: torch.Tensor, dim: int = 0) -> torch.Tensor:
+        """Every rank's ``t`` concatenated in rank order along ``dim``."""
         (buf,) = self._outgoing([t])
         parts = [torch.empty_like(buf) for _ in range(self.size)]
         dist.all_gather(parts, buf)
         self.messages["gather"] += 1
         self.bytes_sent["gather"] += buf.numel() * buf.element_size()
-        return self._arrived(torch.cat(parts))
+        return self._arrived(torch.cat(parts, dim=dim))
 
     def counts(self) -> dict:
         """This rank's traffic so far: bytes and messages by kind, and the

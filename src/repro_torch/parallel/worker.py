@@ -15,15 +15,32 @@ launch_fabric`` starts.  The spec names the backend (``device``,
   ``convert.operator``, with ``kind``); ``use_kernel`` overrides the
   operator's flag.  ``rhs`` and
   ``sigmas`` are ``{"npz": path, "key": name}``.
+  ``solver`` may hold ``telemetry_cap``, ``recurrence`` and a
+  ``governor`` (the ``stability.GovernorConfig`` fields): an
+  instrumented, governed solve, whose ring and governor vector every
+  rank records.
+* ``{"kind": "governed", ...}``: as ``solve``, through
+  ``stability.governed_solve`` (the depth ladder: each attempt re-enters
+  the solve at its l over the same wire); ``solver`` holds ``l``.
+* ``{"kind": "solve_batched", ...}``: as ``solve``, ``rhs`` naming an
+  (s, n) slab, one right-hand side a row: one
+  ``MultiprocessBackend.solve_batched``; ``overlap`` (``{"l", "window"}``)
+  adds ``batched_plcg_overlap_report`` on the slab, traced on every rank.
+* ``{"kind": "serve", "name": ..., "operator": ..., "trace": {"npz":
+  path}, "service": {...}, "replay": {...}}``: a ``SolverService`` of
+  the ``service`` settings (Jacobi) on a virtual clock; rank 0 replays the
+  trace (``t``, ``b`` (m, n), ``tol``, ``deadline`` arrays; deadline < 0
+  is none) and stops the others, which follow its commands.
 * ``{"kind": "decode_merge", "name": ..., "B", "H", "Hkv", "D", "S",
   "kv_len", "seed", "block_s"}``: rank r's split of a KV cache of S
   positions (``decode_split``), its ``decode_attention_stats``, and
   ``merge_decode_shards`` over the wire.
 
 Each rank writes ``<name>.rank<r>.json`` (counts, kernel launches, wire
-traffic, times, digests of x and the history) into the output directory,
-and rank 0 also ``<name>.npz`` (x, res_history, norm0; or the merged
-decode output).
+traffic, times, digests of x, the history, the ring and the governor
+vector) into the output directory, and rank 0 also ``<name>.npz`` (x,
+res_history, norm0, telemetry, governor; the served requests' solutions;
+or the merged decode output).
 """
 
 from __future__ import annotations
@@ -111,13 +128,28 @@ def decode_split(rank: int, n_ranks: int, task: dict, device):
     return q, k, v, kv
 
 
+def _solver_kw(task: dict, dev) -> dict:
+    """The task's solver keyword arguments: its ``solver`` dict, the
+    shifts, and a ``governor`` dict as a ``GovernorConfig``."""
+    kw = dict(task.get("solver", {}))
+    if task.get("sigmas") is not None:
+        kw["sigmas"] = _array(task["sigmas"], dev)
+    if kw.get("governor") is not None:
+        from repro_torch.stability import GovernorConfig
+
+        kw["governor"] = GovernorConfig(**kw["governor"])
+    return kw
+
+
 def _solve(be, task: dict, out_dir: str, cache: dict) -> dict:
+    """A ``solve``, ``governed`` or ``solve_batched`` task."""
     from repro_torch.kernels import _build
     from repro_torch.linalg import JacobiPrec
     from repro_torch.linalg.partition import plan_for
     from repro_torch.linalg.sparse import SparseOp
 
     dev = be.device
+    kind = task.get("kind", "solve")
     t0 = time.perf_counter()
     op = _operator(task["operator"], dev, cache)
     prec = JacobiPrec.from_operator(op)
@@ -125,38 +157,126 @@ def _solve(be, task: dict, out_dir: str, cache: dict) -> dict:
         plan_for(op, be.world_size)        # the partition, memoized
     b = _array(task["rhs"], dev)
     setup_s = time.perf_counter() - t0
-    kw = dict(task.get("solver", {}))
-    if task.get("sigmas") is not None:
-        kw["sigmas"] = _array(task["sigmas"], dev)
+    kw = _solver_kw(task, dev)
+    method = task.get("method", "plcg")
     be.wire.reset_counts()
     torch.distributed.barrier()
     _sync(dev)
     _build.reset_launches()
+    attempts = None
     t0 = time.perf_counter()
-    res = be.solve(op, b, method=task.get("method", "plcg"), prec=prec, **kw)
+    if kind == "governed":
+        from repro_torch.stability import governed_solve
+
+        res, attempts = governed_solve(be, op, b, prec=prec, **kw)
+    elif kind == "solve_batched":
+        res = be.solve_batched(op, b, method=method, prec=prec, **kw)
+    else:
+        res = be.solve(op, b, method=method, prec=prec, **kw)
     _sync(dev)
     wall = time.perf_counter() - t0
     launches = dict(_build.LAUNCHES)
-    iters = int(res.iters)
+    iters = int(res.iters.max())
     phases = sum(v for k, v in launches.items() if k.startswith("fused_iter"))
     rec = {"task": task["name"], "rank": be.rank, "world": be.world_size,
            "describe": be.describe(), "wire": be.hop_wire(),
-           "reduction": be.reduction_mode, "converged": bool(res.converged),
-           "iters": iters, "restarts": int(res.restarts),
+           "reduction": be.reduction_mode,
+           "converged": bool(res.converged.all()),
+           "iters": iters, "iters_by_column": res.iters.reshape(-1).tolist(),
+           "restarts": int(res.restarts.max()),
            "host_syncs": res.host_syncs, "setup_s": setup_s, "wall_s": wall,
            "ms_per_update": 1e3 * wall / max(iters, 1),
            "vector_phases": phases,
            "ms_per_vector_phase": 1e3 * wall / phases if phases else None,
            "launches": launches, "wire_counts": be.wire.counts(),
            "x_sha256": digest(res.x),
-           "history_sha256": digest(res.res_history)}
+           "history_sha256": digest(res.res_history),
+           "telemetry_sha256": (None if res.telemetry is None
+                                else digest(res.telemetry)),
+           "governor_sha256": (None if res.governor is None
+                               else digest(res.governor)),
+           "attempts": attempts}
+    if kind == "solve_batched" and task.get("overlap"):
+        from repro_torch.utils.trace import batched_plcg_overlap_report
+
+        ov = task["overlap"]
+        torch.distributed.barrier()
+        rep = batched_plcg_overlap_report(
+            be, op, b, int(ov["l"]), window=int(ov["window"]),
+            sigmas=kw.get("sigmas"), prec=prec,
+            fused_iteration=bool(kw.get("fused_iteration", False)))
+        rec["overlap"] = {
+            "window": rep.window, "max_in_flight": rep.max_in_flight,
+            "starts_per_window": list(rep.starts_per_window.values()),
+            "staged_starts_per_window":
+                list(rep.staged_starts_per_window.values()),
+            "collective_bytes": rep.collective_bytes,
+            "reduce_hops": rep.n_reduce_hops,
+            "halo_permutes": rep.n_halo_permutes}
     if be.rank == 0:
+        r = b - op.apply(res.x)
         rec["true_rel_residual"] = float(
-            torch.linalg.norm(b - op.apply(res.x)) / torch.linalg.norm(b))
+            (torch.linalg.norm(r, dim=-1)
+             / torch.linalg.norm(b, dim=-1).clamp_min(1e-300)).max())
+        extra = {k: getattr(res, k).cpu().numpy()
+                 for k in ("telemetry", "governor")
+                 if getattr(res, k) is not None}
         np.savez(os.path.join(out_dir, task["name"] + ".npz"),
                  x=res.x.cpu().numpy(),
                  res_history=res.res_history.cpu().numpy(),
-                 norm0=res.norm0.cpu().numpy())
+                 norm0=res.norm0.cpu().numpy(),
+                 iters=res.iters.cpu().numpy(), **extra)
+    return rec
+
+
+def _serve(be, task: dict, out_dir: str, cache: dict) -> dict:
+    """A ``serve`` task: rank 0 replays the trace on a virtual clock and
+    stops the other ranks, which follow its commands."""
+    from repro_torch.serve import (Arrival, SolverService, VirtualClock,
+                                   replay)
+
+    dev = be.device
+    op = _operator(task["operator"], dev, cache)
+    tr = load_npz(task["trace"]["npz"])
+    svc = SolverService(be, clock=VirtualClock(), prec="jacobi",
+                        **task.get("service", {}))
+    svc.register_operator("op", op)
+    be.wire.reset_counts()
+    torch.distributed.barrier()
+    _sync(dev)
+    t0 = time.perf_counter()
+    report = None
+    if be.rank == 0:
+        trace = [Arrival(t=float(t), op_key="op", b=tr["b"][i],
+                         tol=float(tr["tol"][i]),
+                         deadline_s=(None if tr["deadline"][i] < 0
+                                     else float(tr["deadline"][i])))
+                 for i, t in enumerate(tr["t"])]
+        report = replay(svc, trace, **task.get("replay", {}))
+        svc.stop()
+    else:
+        svc.follow()
+    _sync(dev)
+    wall = time.perf_counter() - t0
+    res = svc.results
+    done = sorted(k for k, r in res.items() if not r.shed)
+    rec = {"task": task["name"], "rank": be.rank, "world": be.world_size,
+           "wall_s": wall, "admitted": sorted(res), "finished": done,
+           "shed": sorted(k for k, r in res.items() if r.shed),
+           "iters": {str(k): res[k].iters for k in done},
+           "x_sha256": {str(k): digest(torch.as_tensor(res[k].x))
+                        for k in done},
+           "retirement_log": [list(e) for e in svc.retirement_log],
+           "chunks_run": svc.scheduler.chunks_run,
+           "wire_counts": be.wire.counts()}
+    if report is not None:
+        rec["admitted_at_the_door"] = report.n_arrivals - report.n_rejected
+        rec["report"] = {k: v for k, v in report.metrics().items()
+                         if isinstance(v, (int, float))}
+        np.savez(os.path.join(out_dir, task["name"] + ".npz"),
+                 ids=np.asarray(done),
+                 x=np.stack([res[k].x for k in done]) if done
+                 else np.zeros((0, op.n)))
     return rec
 
 
@@ -206,8 +326,9 @@ def main(argv=None) -> int:
                 reduction_stages=int(task.get("stages", 2)),
                 reduction_dtype={None: None, "float32": torch.float32}[
                     task.get("wire_dtype")])
-            run = {"solve": _solve, "decode_merge": _decode_merge}[
-                task["kind"]]
+            run = {"solve": _solve, "governed": _solve,
+                   "solve_batched": _solve, "serve": _serve,
+                   "decode_merge": _decode_merge}[task["kind"]]
             rec = run(be, task, out_dir, cache)
             path = os.path.join(out_dir, f"{task['name']}.rank{be.rank}.json")
             with open(path, "w") as f:

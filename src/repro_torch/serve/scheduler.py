@@ -35,6 +35,14 @@ order — is a pure function of the submission sequence and the injected
 clock (``repro_torch.serve.clock``): no wall-clock reads, no unordered-dict
 iteration, no randomness.  That determinism is what the replay test
 harness (``repro_torch.serve.replay``) asserts bit-for-bit.
+
+A tick is planned, then run: :meth:`SlabScheduler.tick` makes every host
+decision of the tick (which requests each worker packs, which are shed)
+and hands the :class:`TickPlan` to ``on_plan`` before any slab program
+runs; a service over several ranks broadcasts it from rank 0 there, and
+the other ranks run the same plan through :meth:`SlabScheduler.follow`
+(``serve.service``), so every rank makes the same slab-program calls in
+the same order.
 """
 
 from __future__ import annotations
@@ -226,6 +234,17 @@ class SlabWorker:
         return self.occupied_slot_iters / self.capacity_slot_iters
 
 
+class TickPlan(NamedTuple):
+    """The host decisions of one tick, made before any slab program runs:
+    ``workers`` the pool's (wid, slab key) in tick order, ``packs`` the
+    requests each worker packs into its free slots (in slot order), and
+    ``shed`` the requests dropped at pack time."""
+
+    workers: list[tuple[int, SlabKey]]
+    packs: list[tuple[SlabWorker, list[SolveRequest]]]
+    shed: list[SolveRequest]
+
+
 @dataclasses.dataclass
 class TickReport:
     """What one scheduler tick did (the service turns this into results
@@ -259,7 +278,8 @@ class SlabScheduler:
                  shed_expired: bool = True,
                  registry: MetricsRegistry | None = None,
                  fault_injector: Callable[[int, SlabWorker], None]
-                 | None = None):
+                 | None = None,
+                 on_plan: Callable[[TickPlan], None] | None = None):
         if max_replicas < 1:
             raise ValueError(f"max_replicas must be >= 1 ({max_replicas})")
         self.make_program = make_program
@@ -273,6 +293,10 @@ class SlabScheduler:
         # process death at a deterministic tick (the serve recovery
         # drill's injection point — DESIGN.md §19).
         self.fault_injector = fault_injector
+        # on_plan(plan) runs once a tick, after its host decisions and
+        # before any slab program call (a service over ranks broadcasts
+        # the plan there).
+        self.on_plan = on_plan
         self.workers: list[SlabWorker] = []
         self._next_wid = 0               # wids never reuse: a respawned
         # worker is a NEW identity (death/steal/shed logs stay unambiguous)
@@ -402,8 +426,10 @@ class SlabScheduler:
         return out
 
     def tick(self, now: float) -> TickReport:
-        """One scheduler tick: pack every worker, chunk all busy slabs
-        (back-to-back, before any poll), then poll/retire.
+        """One scheduler tick: plan every worker's pack (and shed what
+        expired), hand the plan to ``on_plan``, then pack every worker,
+        chunk all busy slabs (back-to-back, before any poll), then
+        poll/retire.
 
         Each phase isolates worker faults (``WORKER_FAULT_TYPES``): a
         worker whose pack/chunk/poll raises is torn down via
@@ -413,8 +439,7 @@ class SlabScheduler:
         self.ticks += 1
         self._c_ticks.inc()
         shed: list[SolveRequest] = []
-        failed: list[SolveRequest] = []
-        deaths: list[DeathEvent] = []
+        packs: list[tuple[SlabWorker, list[SolveRequest]]] = []
         for w in list(self.workers):
             if not self.continuous and w.occupied():
                 continue                # drain-to-empty baseline
@@ -423,12 +448,55 @@ class SlabScheduler:
             if len(incoming) < k and not w.local:
                 incoming += self._steal(w, k - len(incoming), now, shed)
             if incoming:
-                try:
-                    w.pack(incoming)
-                except WORKER_FAULT_TYPES as e:
-                    # pack places requests into slots before touching
-                    # the program, so occupied() covers ``incoming``.
-                    failed.extend(self._fail_worker(w, e, deaths))
+                packs.append((w, incoming))
+        plan = TickPlan(workers=[(w.wid, w.key) for w in self.workers],
+                        packs=packs, shed=shed)
+        if self.on_plan is not None:
+            self.on_plan(plan)
+        return self._run(plan)
+
+    def follow(self, workers: list[tuple[int, SlabKey]],
+               packs: list[tuple[int, list[SolveRequest]]]) -> TickReport:
+        """Run a tick another scheduler planned (rank 0's, over ranks):
+        the pool becomes ``workers`` ((wid, slab key) in tick order,
+        spawning the new ones on this scheduler's programs), then each
+        worker of ``packs`` ((wid, requests)) packs its requests and the
+        tick runs as :meth:`tick` runs it.  Polls read replicated slab
+        status only, so this pool retires what the planner's retires."""
+        self.ticks += 1
+        self._c_ticks.inc()
+        have = {w.wid: w for w in self.workers}
+        pool = []
+        for wid, key in workers:
+            w = have.get(wid)
+            if w is None:
+                prog = self._programs.get(key)
+                if prog is None:
+                    prog = self._programs[key] = self.make_program(key)
+                w = SlabWorker(wid, key, prog, self.device)
+            pool.append(w)
+        self.workers = pool
+        self._by_key = {}
+        for w in pool:
+            self._by_key.setdefault(w.key, []).append(w)
+        self._next_wid = max([self._next_wid] + [w + 1 for w, _ in workers])
+        by_wid = {w.wid: w for w in pool}
+        return self._run(TickPlan(
+            workers=workers, packs=[(by_wid[wid], reqs)
+                                    for wid, reqs in packs], shed=[]))
+
+    def _run(self, plan: TickPlan) -> TickReport:
+        """The device half of a tick: the plan's packs, every busy slab's
+        chunk, then the polls."""
+        failed: list[SolveRequest] = []
+        deaths: list[DeathEvent] = []
+        for w, incoming in plan.packs:
+            try:
+                w.pack(incoming)
+            except WORKER_FAULT_TYPES as e:
+                # pack places requests into slots before touching
+                # the program, so occupied() covers ``incoming``.
+                failed.extend(self._fail_worker(w, e, deaths))
         # Chunks run back-to-back, every slab's before any poll.
         live: list[SlabWorker] = []
         new_states = []
@@ -452,8 +520,8 @@ class SlabScheduler:
                 # An asynchronous device error surfaces at the poll's host
                 # transfer — same teardown, minus whatever retired.
                 failed.extend(self._fail_worker(w, e, deaths))
-        return TickReport(retired=retired, shed=shed, chunks_run=len(live),
-                          failed=failed, deaths=deaths)
+        return TickReport(retired=retired, shed=plan.shed,
+                          chunks_run=len(live), failed=failed, deaths=deaths)
 
     # -------------------------------------------------------- telemetry --
     def reset_stats(self) -> None:

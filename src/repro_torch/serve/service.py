@@ -38,6 +38,21 @@ predicated and stay bitwise frozen (``repro_torch.core.batched``), so a
 retired iterate is unaffected by however long its slab-mates keep
 running.  Every slab has fixed (s, n) shapes: the request mix never
 rebuilds a program.
+
+Over several ranks (a ``MultiprocessBackend`` whose group has more than
+one rank) every rank builds the same service and registers the same
+operators, and the slab programs run on each rank's block of rows.  The
+queue, the clock and every admission and scheduling decision are rank
+0's: rank 0 submits and steps (``step``, ``drain``, ``replay``), and at
+each tick, before any slab program runs, it broadcasts ONE small command
+(the pool's workers, the requests each packs, what the last tick retired
+and shed, the clock) and sends each other rank its rows of the packed
+right-hand sides, one message a rank.  The other ranks run ``follow()``,
+which makes the same slab-program calls in the same order until rank 0's
+``stop()``; their polls read replicated slab status only, so they retire
+what rank 0 retires (each command's retired list is checked against it),
+and their ``results`` hold the same finished and shed requests.  With one
+rank there is no command: the service is the one-device service.
 """
 
 from __future__ import annotations
@@ -56,7 +71,11 @@ from repro_torch.serve.cache import SetupCache
 from repro_torch.serve.clock import Clock, SystemClock
 from repro_torch.serve.errors import (AdmissionRejected, BadRequestError,
                                       ConfigError, UnknownOperatorError)
-from repro_torch.serve.scheduler import SlabScheduler
+from repro_torch.serve.scheduler import SlabScheduler, TickPlan
+
+# Message tag of the right-hand sides' rows rank 0 sends each other rank
+# with a command (the ladder's and the halo's tags lie below).
+SERVE_TAG = 3000
 
 
 @dataclasses.dataclass
@@ -97,10 +116,10 @@ class SolverService:
 
     Parameters
     ----------
-    backend:      a ``ReductionBackend`` with slab programs (``local``;
-                  over ranks they are not ported yet, ROADMAP.md queue 1
-                  item 5b) — the slab programs are built through its
-                  ``make_slab_program``, and the slabs live on its
+    backend:      a ``ReductionBackend`` with slab programs (``local``,
+                  or ``multiprocess`` over ranks, rank 0 leading: see the
+                  module docstring) — the slab programs are built through
+                  its ``make_slab_program``, and the slabs live on its
                   ``device``.
     s:            slab width (requests solved in lock-step per slab).
     method:       "cg" | "pcg" | "plcg" (the shared METHODS keys).
@@ -184,13 +203,24 @@ class SolverService:
         self._retry_q: list[tuple[float, int, SolveRequest]] = []
 
         self.queue = RequestQueue()
+        # Over ranks: rank 0 leads (its scheduler's plan goes out as the
+        # tick's command), the others follow it.
+        self.world_size = int(getattr(backend, "world_size", 1))
+        self.rank = int(getattr(backend, "rank", 0))
+        if self.world_size > 1 and fault_injector is not None:
+            raise ConfigError("fault_injector runs on rank 0 alone: over "
+                              "ranks the others could not follow it")
+        self._last_retired: list[tuple[int, int]] = []
+        self._last_shed: list[tuple] = []
         self.scheduler = SlabScheduler(
             self._make_program, device=getattr(backend, "device", None),
             max_replicas=max_replicas,
             replicate_watermark=replicate_watermark, continuous=continuous,
             shed_expired=self.admission.shed_expired,
             registry=self.registry,
-            fault_injector=fault_injector)
+            fault_injector=fault_injector,
+            on_plan=(self._lead if self.world_size > 1 and self.rank == 0
+                     else None))
         # Retired results are held until the caller collects them
         # (``pop_result`` / ``drain``); latency percentiles come from a
         # bounded reservoir so long-lived services don't grow stats state.
@@ -375,29 +405,138 @@ class SolverService:
         resubmitted through the retry policy with a fresh SLO window —
         the deadline re-anchors when the backoff releases them — and
         shed-recorded only on exhausted retries (DESIGN.md §19)."""
+        if self.world_size > 1 and self.rank != 0:
+            raise ConfigError("over ranks only rank 0 steps the service; "
+                              "the other ranks run follow()")
         self._release_due_retries(self.clock.now())
         self._dispatch_queue()
         report = self.scheduler.tick(self.clock.now())
         now = self.clock.now()
-        out = []
-        for rc in report.retired:
-            out.append(self._record(
-                rc.req, worker=rc.worker, x=rc.x, iters=rc.iters,
-                converged=rc.converged, res_history=rc.res_history,
-                shed=False, now=now, telemetry=rc.telemetry))
+        out = self._record_retired(report, now)
         for req in report.shed:
             if self._maybe_requeue(req, now):
                 continue
-            out.append(self._record(
-                req, worker=-1, x=None, iters=0, converged=False,
-                res_history=np.empty(0), shed=True, now=now))
+            out.append(self._record_shed(req, now))
         for req in report.failed:
             if self._maybe_requeue(req, now, counter=self._c_resubmitted):
                 continue
-            out.append(self._record(
-                req, worker=-1, x=None, iters=0, converged=False,
-                res_history=np.empty(0), shed=True, now=now))
+            out.append(self._record_shed(req, now))
         return out
+
+    def _record_retired(self, report, now: float) -> list[RequestResult]:
+        self._last_retired = [(rc.worker, rc.req.req_id)
+                              for rc in report.retired]
+        return [self._record(
+            rc.req, worker=rc.worker, x=rc.x, iters=rc.iters,
+            converged=rc.converged, res_history=rc.res_history,
+            shed=False, now=now, telemetry=rc.telemetry)
+            for rc in report.retired]
+
+    def _record_shed(self, req: SolveRequest, now: float) -> RequestResult:
+        if self.world_size > 1:
+            self._last_shed.append((req.req_id, req.op_key, req.tol,
+                                    req.submitted_at, req.deadline_s))
+        return self._record(
+            req, worker=-1, x=None, iters=0, converged=False,
+            res_history=np.empty(0), shed=True, now=now)
+
+    # ------------------------------------------------------------ ranks ---
+    def _owned(self, op_key: Hashable, rank: int) -> np.ndarray:
+        from repro_torch.parallel.distributed import owned_rows
+
+        return owned_rows(self._operators[op_key].op, self.world_size, rank)
+
+    def _command(self, cmd: dict | None) -> dict:
+        """Rank 0's command to every rank (``broadcast_object_list``):
+        rank 0 passes it, the others get it."""
+        import torch.distributed as dist
+
+        box = [cmd]
+        dist.broadcast_object_list(box, src=0)
+        return box[0]
+
+    def _send_rows(self, blocks: dict[int, np.ndarray]) -> None:
+        """Rank 0: each other rank's rows of the packed right-hand sides,
+        one message a rank."""
+        dev = self.backend.device
+        self.backend.wire.exchange(
+            [(rank, SERVE_TAG, torch.as_tensor(v, dtype=torch.float64,
+                                               device=dev))
+             for rank, v in blocks.items()], [], kind="serve")
+
+    def _recv_rows(self, count: int) -> np.ndarray:
+        """A following rank: its ``count`` rows from rank 0."""
+        like = torch.empty(count, dtype=torch.float64,
+                           device=self.backend.device)
+        (got,) = self.backend.wire.exchange([], [(0, SERVE_TAG, like)],
+                                            kind="serve")
+        return got.cpu().numpy()
+
+    def _lead(self, plan: TickPlan) -> None:
+        """Rank 0's side of a tick (the scheduler's ``on_plan``): the
+        command, then each other rank's rows of the packed right-hand
+        sides, one message a rank."""
+        reqs = [r for _, rs in plan.packs for r in rs]
+        self._command({
+            "stop": False, "now": self.clock.now(),
+            "workers": plan.workers,
+            "packs": [(w.wid, [(r.req_id, r.submitted_at, r.deadline_s)
+                               for r in rs]) for w, rs in plan.packs],
+            "retired": self._last_retired, "shed": self._last_shed})
+        self._last_shed = []
+        if reqs:
+            self._send_rows({rank: np.concatenate(
+                [r.b[self._owned(r.op_key, rank)] for r in reqs])
+                for rank in range(1, self.world_size)})
+
+    def stop(self) -> None:
+        """Rank 0: tell the following ranks to return from ``follow``
+        (with the last tick's retired and shed requests)."""
+        if self.world_size > 1 and self.rank == 0:
+            self._command({"stop": True, "retired": self._last_retired,
+                           "shed": self._last_shed})
+            self._last_shed = []
+
+    def follow(self) -> dict[int, RequestResult]:
+        """A rank other than 0: run rank 0's ticks until its ``stop()``,
+        making the same slab-program calls in the same order, and record
+        the same retired and shed requests.  Returns ``results``."""
+        if self.world_size == 1 or self.rank == 0:
+            raise ConfigError("follow() is for the ranks other than 0 of "
+                              "a service over several ranks")
+        while True:
+            cmd = self._command(None)
+            if cmd["retired"] != self._last_retired:
+                raise RuntimeError(
+                    f"rank {self.rank} retired {self._last_retired}, rank 0 "
+                    f"{cmd['retired']}: the slab status is not replicated")
+            now = cmd.get("now", self.clock.now())
+            for req_id, op_key, tol, t0, dl in cmd["shed"]:
+                self._record_shed(SolveRequest(
+                    req_id=req_id, op_key=op_key, b=np.empty(0), tol=tol,
+                    submitted_at=t0, deadline_s=dl), now)
+            self._last_shed = []
+            if cmd["stop"]:
+                return self.results
+            keys = dict(cmd["workers"])
+            lens = [len(self._owned(keys[wid][0], self.rank))
+                    for wid, infos in cmd["packs"] for _ in infos]
+            block = self._recv_rows(sum(lens)) if lens else None
+            packs, off = [], 0
+            for wid, infos in cmd["packs"]:
+                op_key, tol = keys[wid]
+                own = self._owned(op_key, self.rank)
+                reqs = []
+                for req_id, t0, dl in infos:
+                    b = np.zeros(self._operators[op_key].op.n)
+                    b[own] = block[off:off + own.size]
+                    off += own.size
+                    reqs.append(SolveRequest(
+                        req_id=req_id, op_key=op_key, b=b, tol=tol,
+                        submitted_at=t0, deadline_s=dl))
+                packs.append((wid, reqs))
+            self._record_retired(
+                self.scheduler.follow(cmd["workers"], packs), now)
 
     def drain(self, max_ticks: int = 10_000) -> dict[int, RequestResult]:
         """Run the scheduler until queue and slabs are empty.  When the

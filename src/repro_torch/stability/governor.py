@@ -73,7 +73,10 @@ def governed_solve(backend, op, b, *, l: int, prec=None,
 
     ``ops_transform`` rewrites the backend's ``SolverOps`` before the
     solve (``repro_torch.chaos.chaos_ops`` injects reduction-payload
-    faults there); the solve then runs through ``backend.run``."""
+    faults there); the solve then runs through ``backend.run``.  Over
+    ranks (a ``MultiprocessBackend``) every rank calls it alike: each
+    attempt re-enters the solve at its depth over the same wire, and the
+    warm start goes to each rank as its rows of the returned iterate."""
     if min_l < 1:
         raise ValueError("min_l must be >= 1")
     cfg = governor if governor is not None else GovernorConfig()
@@ -83,13 +86,15 @@ def governed_solve(backend, op, b, *, l: int, prec=None,
 
     def run(cur_l, x0):
         kw = dict(solver_kwargs, l=cur_l, recurrence=recurrence,
-                  governor=cfg, **({} if x0 is None else {"x0": x0}))
+                  governor=cfg)
         if ops_transform is None:
-            return backend.solve(op, b, method="plcg", prec=prec, **kw)
+            return backend.solve(op, b, method="plcg", prec=prec, x0=x0,
+                                 **kw)
         from repro_torch.core import pipelined_cg
         return backend.run(
-            lambda ops, bb: pipelined_cg.solve(ops_transform(ops), bb, **kw),
-            op, b, prec=prec)
+            lambda ops, bb, **x: pipelined_cg.solve(ops_transform(ops), bb,
+                                                    **kw, **x),
+            op, b, prec=prec, x0=x0)
 
     while True:
         res = run(cur_l, x0)

@@ -319,18 +319,27 @@ def plcg_window(ops, b, l: int, window: int, recorder=None, sigmas=None,
     return st
 
 
+def _rank_ops(backend, op, prec, b):
+    """The SolverOps and right-hand side a trace runs: the backend's own,
+    or, over ranks (a backend with ``rank_problem``), this rank's ops and
+    its block of ``b``'s rows (every rank traces the same window, in
+    lock step)."""
+    b = as_rhs(b, backend.device)
+    if hasattr(backend, "rank_problem"):
+        rp = backend.rank_problem(op, prec)
+        return rp.ops, rp.rows(b)
+    return backend.make_ops(op, prec), b
+
+
 def _report(backend, op, b, l, window, prec, slab, **build_kw):
     window = l + 2 if window is None else window
     if window < 1:
         raise ValueError("window must be >= 1")
     ladder = getattr(backend, "reduction_cfg", None)
-    if slab and ladder is not None:
-        raise NotImplementedError(
-            "reduction='staged' has no batched form (ROADMAP.md, queue 1 "
-            "item 5b)")
     rec = ScheduleRecorder(depth=l)
-    plcg_window(traced_ops(backend.make_ops(op, prec), rec, ladder),
-                as_rhs(b, backend.device), l, window, rec, **build_kw)
+    ops, bb = _rank_ops(backend, op, prec, b)
+    plcg_window(traced_ops(ops, rec, ladder), bb, l, window, rec,
+                **build_kw)
     return analyze_overlap(rec.events, l, window, rec.payload_bytes)
 
 
@@ -359,7 +368,10 @@ def batched_plcg_overlap_report(backend, op, B, l: int,
                                 governor=None) -> OverlapReport:
     """The report of a slab ``B`` (s, n), one right-hand side a row: the
     staggering must survive batching (``max_in_flight`` as for one column)
-    and the s columns' (s, 2l+1) payload must ride ONE start a window."""
+    and the s columns' (s, 2l+1) payload must ride ONE start a window (on
+    the ladder, one staged start and its hops).  On a
+    ``MultiprocessBackend`` every rank must call it: each records its own
+    rank's schedule, over the wire."""
     return _report(backend, op, B, l, window, prec, True, sigmas=sigmas,
                    fused_iteration=fused_iteration,
                    telemetry_cap=telemetry_cap, recurrence=recurrence,
@@ -393,9 +405,10 @@ def baseline_overlap_report(backend, op, b, method: str, window: int = 4,
     that issued it, so the peak is 1 (the paper's Table 1 contrast).
     Classic CG starts two blocking reductions an iteration, p-CG one."""
     rec = ScheduleRecorder(depth=0)
-    ops = traced_ops(backend.make_ops(op, prec), rec,
-                     getattr(backend, "reduction_cfg", None))
-    baseline_window(ops, as_rhs(b, backend.device), method, window, rec)
+    ops, bb = _rank_ops(backend, op, prec, b)
+    baseline_window(traced_ops(ops, rec,
+                               getattr(backend, "reduction_cfg", None)),
+                    bb, method, window, rec)
     return analyze_overlap(rec.events, 0, window, rec.payload_bytes)
 
 

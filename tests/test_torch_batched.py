@@ -37,7 +37,8 @@ from repro_torch.kernels import ell_spmv, stencil_spmv  # noqa: E402
 from repro_torch.linalg import JacobiPrec, Stencil2D5  # noqa: E402
 from repro_torch.linalg.sparse import random_fem_mesh, rcm_reorder  # noqa: E402
 from repro_torch.parallel.backends import (  # noqa: E402
-    BATCHED_OVER_RANKS, LocalBackend, MultiprocessBackend, get_backend)
+    LocalBackend, MultiprocessBackend, get_backend)
+from repro_torch.parallel.backends.base import ReductionBackend  # noqa: E402
 
 
 def _slab(n, s=4, seed=7, zero=2):
@@ -291,8 +292,12 @@ def test_slab_spmv_plain_forms_match_single():
 
 
 def test_backends_batched_surface():
-    """``get_backend("local")`` builds slab programs and batched solvers;
-    every refusal of batched work over ranks names queue 1 item 5b."""
+    """``get_backend("local")`` builds slab programs and batched solvers,
+    on the monolithic dot block and on the ladder oracle
+    (``reduction="staged"``, each column bitwise its one-column oracle
+    solve); the multiprocess backend has its own batched entry points
+    (tests/test_torch_batched_ranks.py runs them), so nothing refuses
+    batched work over ranks."""
     op = Stencil2D5(8, 8, device="cpu")
     B = torch.as_tensor(_slab(op.n, zero=None))
     be = _cpu()
@@ -300,14 +305,14 @@ def test_backends_batched_surface():
     assert r.x.shape == (4, op.n) and bool(r.converged.all())
     prog = be.make_slab_program(op, s=4, method="cg", tol=1e-8, maxit=200)
     assert prog.s == 4 and prog.n == op.n
-    assert "queue 1 item 5b" in BATCHED_OVER_RANKS
     staged = LocalBackend(device="cpu", reduction="staged", virtual_shards=2)
-    with pytest.raises(NotImplementedError, match="item 5b"):
-        staged.solve_batched(op, B, method="cg")
-    with pytest.raises(NotImplementedError, match="item 5b"):
-        staged.make_slab_program(op, s=4, method="cg")
-    mp = object.__new__(MultiprocessBackend)     # no process group needed
-    for call in (lambda: mp.solve_batched(op, B),
-                 lambda: mp.make_slab_program(op, s=4)):
-        with pytest.raises(NotImplementedError, match="item 5b"):
-            call()
+    rs = staged.solve_batched(op, B, method="cg", tol=1e-8, maxit=200)
+    for c in range(B.shape[0]):
+        one = staged.solve(op, B[c], method="cg", tol=1e-8, maxit=200)
+        assert torch.equal(rs.x[c], one.x)
+        assert torch.equal(rs.res_history[c], one.res_history)
+    assert staged.make_slab_program(op, s=4, method="cg").s == 4
+    for name in ("solve_batched", "make_batched_solver",
+                 "make_slab_program"):
+        assert getattr(MultiprocessBackend, name) is not getattr(
+            ReductionBackend, name)

@@ -332,24 +332,33 @@ class _LoopbackWire:
 
 
 def test_all_reduce_handles_follow_the_ring_and_restarts():
-    """Ring-slot waits complete the oldest request (issued l iterations
-    earlier); a wait on a handle ``start`` returned completes it and the
-    older requests a restart abandoned; a wait with none in flight (a
+    """A ring-slot wait (``advanced`` = l - 1) completes the request
+    issued l ring starts earlier and drops the older ones a restart
+    abandoned; a wait on a handle ``start`` returned completes that
+    request alone (a restart's or a slab column's blocking pair leaves
+    the ring's requests in flight); a wait with none in flight (a
     pipeline-fill slot) returns the slot; the handle the solver copies
     into its ring is a zero token, never the buffer being reduced."""
     wire = _LoopbackWire()
     h = tdist.AllReduceHandles(wire)
-    parts = [torch.full((5,), float(i)) for i in range(4)]
+    parts = [torch.full((5,), float(i)) for i in range(6)]
     toks = [h.start(p_) for p_ in parts[:3]]
     assert all(torch.equal(t, torch.zeros(5)) for t in toks)
     assert toks[0] is not toks[1] and wire.in_flight == 3
     ring = torch.zeros((2, 5))
-    assert torch.equal(h.wait(ring[0]), parts[0] * 3)      # oldest first
-    assert torch.equal(h.wait(ring[1]), parts[1] * 3)
-    blocking = h.start(parts[3])                          # a restart's block
+    # l = 2: three in flight, the wait takes the one two starts back and
+    # drops the abandoned oldest
+    assert torch.equal(h.wait(ring[0], advanced=1), parts[1] * 3)
+    assert wire.in_flight == 1 and len(h.pending) == 1
+    blocking = h.start(parts[3])                          # an inject's block
     assert torch.equal(h.wait(blocking), parts[3] * 3)
-    assert wire.in_flight == 0 and not h.pending           # [2] abandoned
-    assert h.wait(ring[0]) is not None and wire.in_flight == 0
+    assert len(h.pending) == 1                            # [2] stays
+    h.start(parts[4])
+    assert torch.equal(h.wait(ring[1], advanced=1), parts[2] * 3)
+    assert torch.equal(h.wait(ring[0], advanced=0), parts[4] * 3)
+    assert wire.in_flight == 0 and not h.pending
+    slot = ring[0]
+    assert h.wait(slot) is slot and wire.in_flight == 0
 
 
 # ------------------------------------------------- the oracle's fused path --

@@ -292,3 +292,259 @@ def test_decode_merge_over_ranks(group):
     whole = decode_attention_torch(q, k, v, task["kv_len"])
     np.testing.assert_allclose(arr["out"], whole.numpy(), rtol=0, atol=2e-4)
     assert recs[0]["wire_counts"]["messages"]["all_reduce"] == 2
+
+
+# ------------------------------------------ batched, governed, served ----
+# Batched solves (slabs of 4, one zero column), the instrumented and
+# governed solve, and the service over the same P gloo ranks.  Staged:
+# bitwise against the slab ``rank_oracle_ops`` (fused) or
+# ``LocalBackend(reduction="staged", virtual_shards=P)`` (unfused);
+# monolithic: within the tolerances above of the JAX package's batched
+# solve; the service: the same admitted, shed and finished sets on every
+# rank, each solution bitwise the one-device service's on the staged
+# oracle.
+SLAB_CASES = [
+    ("slab_2d5_staged_fused", "stencil2d5", "plcg", "staged", True),
+    ("slab_3d7_staged_fused", "stencil3d7", "plcg", "staged", True),
+    ("slab_ell_staged_fused", "ell", "plcg", "staged", True),
+    ("slab_2d5_mono_fused", "stencil2d5", "plcg", "monolithic", True),
+    ("slab_2d5_cg_staged", "stencil2d5", "cg", "staged", False),
+    ("slab_ell_pcg_mono", "ell", "pcg", "monolithic", False),
+]
+GOV = dict(l=2, tol=1e-9, maxit=600, unroll=4, recurrence="stable",
+           telemetry_cap=128, fused_iteration=True)
+SERVE = dict(s=4, method="plcg", l=2, chunk_iters=8, maxit=400)
+
+
+def _slab_rhs(n):
+    B = np.random.default_rng(17).standard_normal((4, n))
+    B[2] = 0.0
+    return B
+
+
+@pytest.fixture(scope="module", params=RANKS, ids=[f"P{p}" for p in RANKS])
+def slab_group(request, tmp_path_factory):
+    """Every batched, governed and served case over P gloo ranks once."""
+    from repro_torch.parallel.fabric import launch_fabric
+
+    p = request.param
+    out = str(tmp_path_factory.mktemp(f"slab{p}"))
+    J = _jax()
+    inputs, tasks = {}, []
+    for name, (jop, fields) in _problems().items():
+        if name == "stencil3d27":
+            continue
+        np.savez(os.path.join(out, f"{name}.op.npz"), **fields)
+        B = _slab_rhs(jop.n)
+        sig = np.asarray(J["shifts"](jop, 2, prec=J["jacobi"].from_operator(
+            jop)))
+        np.savez(os.path.join(out, f"{name}.rhs.npz"), B=B, b=B[0], sig=sig)
+        inputs[name] = (jop, fields, B, sig)
+
+    def spec(prob, key="B"):
+        rhs = os.path.join(out, f"{prob}.rhs.npz")
+        return {"operator": {"npz": os.path.join(out, f"{prob}.op.npz")},
+                "rhs": {"npz": rhs, "key": key},
+                "sigmas": {"npz": rhs, "key": "sig"}}
+
+    for case, prob, method, red, fused in SLAB_CASES:
+        solver = dict(KW[method])
+        if method == "plcg":
+            solver["fused_iteration"] = fused
+        task = dict(spec(prob), kind="solve_batched", name=case,
+                    method=method, reduction=red, stages=2, solver=solver,
+                    overlap={"l": 2, "window": 6})
+        if method != "plcg":
+            task.update(sigmas=None, overlap=None)
+        tasks.append(task)
+    tasks.append(dict(spec("stencil2d5", "b"), kind="solve", name="governed",
+                      method="plcg", reduction="staged", stages=2,
+                      solver=dict(GOV, governor={"patience": 40})))
+    rng = np.random.default_rng(23)
+    n = inputs["stencil2d5"][0].n
+    np.savez(os.path.join(out, "trace.npz"),
+             t=np.cumsum(rng.exponential(2e-3, 10)),
+             b=rng.standard_normal((10, n)), tol=np.full(10, 1e-8),
+             deadline=np.where(np.arange(10) % 5 == 4, 1e-9, -1.0))
+    tasks.append({"kind": "serve", "name": "serve",
+                  "operator": spec("stencil2d5")["operator"],
+                  "trace": {"npz": os.path.join(out, "trace.npz")},
+                  "reduction": "staged", "stages": 2, "service": SERVE,
+                  "replay": {"iter_time_s": 1e-3, "tick_overhead_s": 1e-3}})
+    with open(os.path.join(out, "spec.json"), "w") as f:
+        json.dump({"backend": {"device": "cpu"}, "out_dir": out,
+                   "threads": 1, "tasks": tasks}, f)
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    launch_fabric(lambda master, k: [sys.executable, "-m",
+                                     "repro_torch.parallel.worker",
+                                     os.path.join(out, "spec.json")],
+                  p, env=env, cwd=ROOT, timeout_s=600)
+    return p, out, inputs
+
+
+def _slab_inputs(group, prob):
+    """The port's operator, Jacobi, slab and shifts (the mesh RCM-ordered
+    as the ranks' partition orders it, with the permutation)."""
+    from repro_torch import convert
+    from repro_torch.linalg import JacobiPrec
+    from repro_torch.linalg.partition import partition_spd
+    from repro_torch.linalg.sparse import SparseOp, permute_spd
+
+    p = group[0]
+    _, fields, B, sig = group[2][prob]
+    top = convert.operator(fields["kind"], device="cpu",
+                           **{k: v for k, v in fields.items() if k != "kind"})
+    perm = None
+    if isinstance(top, SparseOp):
+        perm = partition_spd(top, p).perm
+        top = permute_spd(top, perm, ordered=True)
+    Bt = torch.from_numpy(B)
+    if perm is not None:
+        Bt = Bt[:, torch.from_numpy(perm)]
+    return top, JacobiPrec.from_operator(top), Bt, sig, perm
+
+
+STAGED_SLABS = [c for c in SLAB_CASES if c[3] == "staged"]
+
+
+@pytest.mark.parametrize("case,prob,method,red,fused", STAGED_SLABS,
+                         ids=[c[0] for c in STAGED_SLABS])
+def test_batched_staged_bitwise_against_the_slab_oracle(slab_group, case,
+                                                        prob, method, red,
+                                                        fused):
+    """A staged batched solve over P ranks: every rank the same bits, and
+    the slab oracle's x and histories bit for bit; no hop payload larger
+    than the s columns' (s, 2l+1) block, one staged start a window and l
+    chains in flight on every rank."""
+    from repro_torch.core import batched
+    from repro_torch.parallel.backends import LocalBackend
+    from repro_torch.parallel.distributed import rank_oracle_ops
+    from repro_torch.parallel.reduction import StagedConfig
+
+    p = slab_group[0]
+    recs, arr = _case(slab_group, case)
+    _assert_ranks_agree(recs, p)
+    top, prec, Bt, sig, perm = _slab_inputs(slab_group, prob)
+    kw = dict(KW[method])
+    if method == "plcg":
+        kw.update(sigmas=torch.from_numpy(sig), fused_iteration=fused)
+    if fused:
+        ref = batched.solve_batched(rank_oracle_ops(
+            top, prec, StagedConfig(p, stages=min(2, p - 1))), Bt, method,
+            **kw)
+    else:
+        ref = LocalBackend(device="cpu", reduction="staged",
+                           virtual_shards=p, reduction_stages=2).solve_batched(
+            top, Bt, method=method, prec=prec, **kw)
+    x = torch.from_numpy(arr["x"])
+    if perm is not None:
+        x = x[:, torch.from_numpy(perm)]
+    assert torch.equal(x, ref.x)
+    assert torch.equal(torch.from_numpy(arr["res_history"]), ref.res_history)
+    wire = recs[0]["wire_counts"]
+    assert "all_reduce" not in wire["messages"]
+    # no hop carries more than the s columns' (s, 2l+1) block (the
+    # columns' inits and restarts send one column's)
+    assert 0 < wire["bytes_sent"]["hop"] <= \
+        wire["messages"]["hop"] * 4 * 5 * 8
+    if method == "plcg":
+        for r in recs:
+            ov = r["overlap"]
+            assert ov["max_in_flight"] == 2
+            assert set(ov["staged_starts_per_window"]) == {1}
+
+
+def test_batched_monolithic_within_tolerance_of_jax(slab_group):
+    """Monolithic batched solves over P ranks (one async all-reduce of the
+    (s, 2l+1) block an iteration; p-CG's block) against the JAX package's
+    single-device batched solve of the same columns."""
+    J = _jax()
+    import jax.numpy as jnp
+
+    from repro.parallel import get_backend as jget_backend
+
+    p = slab_group[0]
+    for case, prob, method, red, fused in SLAB_CASES:
+        if red != "monolithic":
+            continue
+        recs, arr = _case(slab_group, case)
+        _assert_ranks_agree(recs, p)
+        jop, _, B, sig = slab_group[2][prob]
+        kw = {k: v for k, v in KW[method].items() if k != "unroll"}
+        if method == "plcg":
+            kw["sigmas"] = jnp.asarray(sig)
+        rj = jget_backend("local").solve_batched(
+            jop, jnp.asarray(B.T), method=method,
+            prec=J["jacobi"].from_operator(jop), **kw)
+        for j in range(B.shape[0]):
+            assert abs(int(rj.iters[j]) - recs[0]["iters_by_column"][j]) <= 2
+            hj, ht = np.asarray(rj.res_history[j]), arr["res_history"][j]
+            np.testing.assert_allclose(ht[:10], hj[:10], rtol=1e-9)
+            xj = np.asarray(rj.x[j])
+            assert np.linalg.norm(arr["x"][j] - xj) <= \
+                1e-6 * max(np.linalg.norm(xj), 1e-300)
+        if method == "plcg":
+            ov = recs[0]["overlap"]
+            assert ov["max_in_flight"] == 2
+            assert ov["collective_bytes"] >= ov["window"] * 5 * 4 * 8
+
+
+def test_governed_instrumented_over_ranks(slab_group):
+    """The instrumented, governed staged solve: its ring and governor
+    vector the same on every rank, and with x and the history bitwise the
+    one-process reference's (``rank_oracle_ops``)."""
+    from repro_torch.core import METHODS
+    from repro_torch.parallel.distributed import rank_oracle_ops
+    from repro_torch.parallel.reduction import StagedConfig
+    from repro_torch.stability import GovernorConfig
+
+    p = slab_group[0]
+    recs, arr = _case(slab_group, "governed")
+    _assert_ranks_agree(recs, p)
+    assert len({(r["telemetry_sha256"], r["governor_sha256"])
+                for r in recs}) == 1
+    top, prec, Bt, sig, _ = _slab_inputs(slab_group, "stencil2d5")
+    ref = METHODS["plcg"](rank_oracle_ops(top, prec, StagedConfig(
+        p, stages=min(2, p - 1))), Bt[0], dict(
+        GOV, sigmas=torch.from_numpy(sig),
+        governor=GovernorConfig(patience=40)))
+    for k in ("x", "res_history", "telemetry", "governor"):
+        assert np.array_equal(arr[k], getattr(ref, k).numpy()), k
+
+
+def test_service_over_ranks(slab_group):
+    """``SolverService`` over P ranks (rank 0 leading, a virtual clock, a
+    trace that sheds): every rank the same admitted, shed and finished
+    sets and solutions, each the one-device service's on the staged
+    oracle bit for bit; rank 0 sends each other rank its rows only."""
+    from repro_torch.parallel.backends import LocalBackend
+    from repro_torch.parallel.worker import digest
+    from repro_torch.serve import (Arrival, SolverService, VirtualClock,
+                                   replay)
+
+    p, out, _ = slab_group
+    recs, arr = _case(slab_group, "serve")
+    for k in ("admitted", "finished", "shed", "x_sha256", "iters",
+              "retirement_log"):
+        assert len({json.dumps(r[k], sort_keys=True) for r in recs}) == 1, k
+    assert recs[0]["shed"] and recs[0]["finished"]
+    top, _, _, _, _ = _slab_inputs(slab_group, "stencil2d5")
+    tr = dict(np.load(os.path.join(out, "trace.npz")))
+    svc = SolverService(LocalBackend(device="cpu", reduction="staged",
+                                     virtual_shards=p), clock=VirtualClock(),
+                        prec="jacobi", **SERVE)
+    svc.register_operator("op", top)
+    replay(svc, [Arrival(t=float(t), op_key="op", b=tr["b"][i],
+                         tol=float(tr["tol"][i]),
+                         deadline_s=None if tr["deadline"][i] < 0
+                         else float(tr["deadline"][i]))
+                 for i, t in enumerate(tr["t"])],
+           iter_time_s=1e-3, tick_overhead_s=1e-3)
+    assert sorted(k for k, r in svc.results.items() if r.shed) == \
+        recs[0]["shed"]
+    assert {str(k): digest(torch.as_tensor(r.x))
+            for k, r in svc.results.items() if not r.shed} == \
+        recs[0]["x_sha256"]
+    sent = [r["wire_counts"]["bytes_sent"].get("serve", 0) for r in recs]
+    assert sent[0] == len(recs[0]["finished"]) * (top.n // p) * 8 * (p - 1)
+    assert all(s == 0 for s in sent[1:])

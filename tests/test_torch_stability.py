@@ -331,11 +331,25 @@ def test_process_faults_refused():
 
 @pytest.mark.parametrize("kw", [dict(governor=GovernorConfig()),
                                 dict(telemetry_cap=64)])
-def test_multiprocess_backend_refuses_governor_and_telemetry(kw):
-    """Over ranks the ring and the governor are refused out loud (before
-    any wire is touched), naming the roadmap item; the backend object is
-    made without joining a process group."""
+def test_multiprocess_backend_refuses_governor_and_telemetry(kw, monkeypatch):
+    """Over ranks the ring and the governor are no longer refused: the
+    backend hands them to ``distributed_solve`` unchanged (whose rings and
+    governor vectors are replicated: tests/test_torch_batched_ranks.py).
+    What it still refuses out loud, before any wire is touched and naming
+    the roadmap item, is a checkpointed solve, with or without them; the
+    backend object is made without joining a process group."""
+    from repro_torch.checkpoint import CheckpointConfig
+    from repro_torch.parallel import distributed
+
     be = MultiprocessBackend.__new__(MultiprocessBackend)
+    be.device, be.wire, be.reduction_cfg = torch.device("cpu"), None, None
     top = convert.operator("stencil2d5", nx=8, ny=8, device="cpu")
+    seen = {}
+    monkeypatch.setattr(distributed, "distributed_solve",
+                        lambda wire, op, b, **k: seen.update(k))
+    be.solve(top, np.ones(top.n), method="plcg", l=2, **kw)
+    assert all(seen[k] is v for k, v in kw.items())
     with pytest.raises(NotImplementedError, match="item 6b"):
-        be.solve(top, np.ones(top.n), method="plcg", l=2, **kw)
+        be.solve(top, np.ones(top.n), method="plcg", l=2,
+                 checkpoint=CheckpointConfig(every=4, directory="unused"),
+                 **kw)
