@@ -155,9 +155,10 @@ Phases, each printed as one JSON line; every phase raises on failure:
    slab form (s = 8, l = 2, Jacobi) on 4 shards of laplace2d 2048^2, the
    icesheet3d-stencil grid and icesheet3d, rows bitwise against the plain
    version, timed beside 8 single-column launches; a world of one over
-   NCCL (phase 16's slab at ``main_solve``'s settings, column by column
-   bitwise phase 16's, column 0 ``main_solve``; phase 17's governed,
-   instrumented solve bitwise; phase 16's service of 16 requests
+   NCCL (phase 16's slab at ``main_solve``'s settings and phase 17's
+   governed, instrumented solve, each to 2 000 updates, bitwise the same
+   on one device, the slab's column 0 the sequential solve;
+   phase 16's service of 16 requests
    bitwise); four gloo ranks on the card (laplace2d slabs of 8, 200
    updates, staged bitwise against the slab ``rank_oracle_ops`` and
    monolithic within ORACLE_HIST, with the overlap report's counts on
@@ -166,6 +167,18 @@ Phases, each printed as one JSON line; every phase raises on failure:
    same on every rank and bitwise the oracle's; a service replay of 8
    requests at 1024^2, the same sets on every rank and bitwise the
    one-device staged-oracle service).
+
+22. checkpointed solves over ranks and the kill-a-rank recovery drill
+   (``ranks_recovery_phase``): a world of one over NCCL at ``main_solve``'s
+   settings to 3 000 updates with ``CheckpointConfig(every=1000)``,
+   bitwise the one-device ``rank_oracle_ops`` run, its resume bitwise,
+   its snapshot in the JAX format and restored on one device bitwise;
+   four gloo ranks on the card (laplace2d 1024^2, fused p(2)-CG staged,
+   ``every=200``, 1 000 updates) under ``run_resilient``: rank 2 killed
+   at update 600 (exit 137, the others 143 with their flush sentinels),
+   the second attempt restored from the last snapshot and bitwise the
+   uninterrupted 4-shard oracle on every rank; that run's last snapshot
+   restored by ``LocalBackend(reduction="staged", virtual_shards=4)``.
 
 Every kernel row of phases 8 and 9 carries its device time (profiler)
 beside its event time.
@@ -1760,9 +1773,6 @@ def batched_serve_phase(dev, gpu, randn, phase_scal, lap, ice, op, prec, b,
     if rec["iters"][0] != main["iters"]:
         failed.append("column 0 vs main_solve")
     out["laplace2d"] = rec
-    REFS["slab_laplace2d"] = [(digest(r.x[c]), digest(r.res_history[c]))
-                              for c in range(SLAB_S)]
-    REFS["slab_laplace2d_ms_per_update"] = rec["ms_per_update"]
     del r
     prof_kw = dict(solve_kw, maxit=100, tol=1e-30)
     be.solve_batched(op, B, prec=prec, **prof_kw)
@@ -2102,9 +2112,6 @@ def stability_phase(dev, gpu, op, prec, b, solve_kw, main, main_digest,
             "vector_phases": phases, "wall_s": wall,
             "ms_per_iter": 1e3 * wall / max(phases, 1),
             "host_syncs": r.host_syncs}
-        if name == "governed_clean":
-            REFS["governed_clean"] = [digest(t) for t in (
-                r.x, r.res_history, r.telemetry, r.governor)]
         del r
     g = out["governed_clean"]
     if not (g["converged"] and g["true_rel_residual"] < 10 * TOL
@@ -2905,6 +2912,9 @@ RANKS_SERVE_TOL = 1e-4          # ranks_slab: their tolerance (a check of
 # the ranks' coordination: classic CG takes two ladders an iteration over
 # the staged gloo wire, ~20 ms, so it runs to 1e-4, not TOL)
 RANKS_SHORT = 200               # ranks_slab: laplace2d slab updates, 4 ranks
+RANKS_GOV_MAXIT = 2000          # ranks_slab: the world of one's governed
+                                # solve and its slab of SLAB_S, cut to a
+                                # fixed depth of updates (PERF.md §4)
 
 
 def halo_slab_checks(dev, randn, phase_scal, operators: dict,
@@ -3021,7 +3031,7 @@ def halo_slab_checks(dev, randn, phase_scal, operators: dict,
 
 
 def ranks_slab_phase(dev, gpu, randn, phase_scal, lap, ice, op, prec, b,
-                     solve_kw, main, main_digest, iop, iprec, ib, ice_kw,
+                     solve_kw, iop, iprec, ib, ice_kw,
                      plan) -> tuple[dict, dict, dict]:
     """Phase 21, batched solves, the telemetry ring and the governor, and
     the service over ranks (``MultiprocessBackend``, ranks started by
@@ -3031,10 +3041,12 @@ def ranks_slab_phase(dev, gpu, randn, phase_scal, lap, ice, op, prec, b,
        shards of laplace2d 2048^2, the icesheet3d-stencil grid and
        icesheet3d (``halo_slab_checks``);
     2. a world of one over NCCL: ``solve_batched`` of phase 16's slab of
-       SLAB_S at ``main_solve``'s settings, column by column bitwise phase
-       16's one-device slab (column 0 ``main_solve``); phase 17's
-       governed, instrumented solve (patience GOV_PATIENCE), bitwise its
-       ring, governor vector, history and x; phase 16's service of
+       SLAB_S at ``main_solve``'s settings cut to RANKS_GOV_MAXIT updates,
+       column by column bitwise the same slab on one device (column 0 the
+       sequential solve of ``main_solve``'s b); phase 17's
+       governed, instrumented solve (patience GOV_PATIENCE) cut to
+       RANKS_GOV_MAXIT updates, bitwise the same solve on one device (its
+       ring, governor vector, history and x); phase 16's service of
        SERVE_REQUESTS requests (classic CG, 2048^2), each request's
        iterations and solution bitwise;
     3. four gloo ranks sharing the card: laplace2d slabs of SLAB_S for
@@ -3115,7 +3127,7 @@ def ranks_slab_phase(dev, gpu, randn, phase_scal, lap, ice, op, prec, b,
     ice_solver = {k: v for k, v in ice_kw.items() if k != "sigmas"}
     gov_kw = dict(lap_kw, recurrence="stable",
                   governor={"patience": GOV_PATIENCE},
-                  telemetry_cap=GOV_RING)
+                  telemetry_cap=GOV_RING, maxit=RANKS_GOV_MAXIT)
     ice_gov = dict(ice_solver, recurrence="stable", governor={},
                    telemetry_cap=256)
     short = dict(lap_kw, maxit=RANKS_SHORT, tol=1e-30)
@@ -3201,7 +3213,8 @@ def ranks_slab_phase(dev, gpu, randn, phase_scal, lap, ice, op, prec, b,
         # ---- 2. a world of one over NCCL --------------------------------
         lap_spec = {"config": "laplace2d"}
         w1, w1_s = run_group("w1", 1, "nccl", [
-            task("solve_batched", "slab", lap_spec, "lap", lap_kw),
+            task("solve_batched", "slab", lap_spec, "lap",
+                 dict(lap_kw, maxit=RANKS_GOV_MAXIT)),
             task("solve", "governed", lap_spec, "lap", gov_kw, key="b"),
             serve_task("serve", {"config": "laplace2d", "use_kernel": True},
                        "srv16", "monolithic",
@@ -3212,26 +3225,52 @@ def ranks_slab_phase(dev, gpu, randn, phase_scal, lap, ice, op, prec, b,
         x, h = arr["x"], arr["res_history"]
         cols = [(digest(torch.as_tensor(x[c])),
                  digest(torch.as_tensor(h[c]))) for c in range(SLAB_S)]
-        rec["columns_bitwise_vs_one_device_slab"] = \
-            cols == REFS.get("slab_laplace2d")
-        rec["column0_bitwise_vs_main_solve"] = cols[0] == main_digest
-        rec["one_device_slab_ms_per_update"] = REFS.get(
-            "slab_laplace2d_ms_per_update")
+        # the one-device references at the same depth: phase 16's slab
+        # and main_solve's sequential solve of column 0
+        cut_kw = dict(solve_kw, maxit=RANKS_GOV_MAXIT)
+        one = LocalBackend(device=dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sref = one.solve_batched(op, torch.as_tensor(B, device=dev),
+                                 prec=prec, **cut_kw)
+        torch.cuda.synchronize()
+        one_s = time.perf_counter() - t0
+        seq = one.solve(op, b, prec=prec, **cut_kw)
+        rec["maxit"] = RANKS_GOV_MAXIT
+        rec["columns_bitwise_vs_one_device_slab"] = cols == [
+            (digest(sref.x[c]), digest(sref.res_history[c]))
+            for c in range(SLAB_S)]
+        rec["column0_bitwise_vs_sequential_solve"] = cols[0] == (
+            digest(seq.x), digest(seq.res_history))
+        rec["one_device_slab_ms_per_update"] = 1e3 * one_s / max(
+            int(sref.iters.sum()), 1)
+        del sref, seq
         w1_rec = {"group_s": w1_s, "slab": rec}
         if not (rec["columns_bitwise_vs_one_device_slab"]
-                and rec["column0_bitwise_vs_main_solve"]
+                and rec["column0_bitwise_vs_sequential_solve"]
                 and rec["halo_slab_plugin_every_iteration"]):
             failed.append("world1 slab")
         grec = w1["governed"][0][0]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        gref = LocalBackend(device=dev).solve(
+            op, b, prec=prec, recurrence="stable",
+            governor=GovernorConfig(patience=GOV_PATIENCE),
+            telemetry_cap=GOV_RING, **dict(solve_kw, maxit=RANKS_GOV_MAXIT))
+        torch.cuda.synchronize()
         w1_rec["governed"] = {
             "iters": grec["iters"], "restarts": grec["restarts"],
-            "wall_s": grec["wall_s"],
+            "maxit": RANKS_GOV_MAXIT, "wall_s": grec["wall_s"],
+            "one_device_s": time.perf_counter() - t0,
             "ms_per_vector_phase": grec["ms_per_vector_phase"],
             "bitwise_vs_one_device": [grec["x_sha256"],
                                       grec["history_sha256"],
                                       grec["telemetry_sha256"],
                                       grec["governor_sha256"]]
-            == REFS.get("governed_clean")}
+            == [digest(t) for t in (gref.x, gref.res_history,
+                                    gref.telemetry, gref.governor)]
+            and grec["iters"] == int(gref.iters) > 0}
+        del gref
         if not w1_rec["governed"]["bitwise_vs_one_device"]:
             failed.append("world1 governed")
         srec = w1["serve"][0][0]
@@ -3394,6 +3433,304 @@ def ranks_slab_phase(dev, gpu, randn, phase_scal, lap, ice, op, prec, b,
         raise AssertionError("ranks_slab failed: " + ", ".join(
             k for k, v in checks.items() if not v))
     return launches, errs, timings
+
+
+RECOVERY_W1_EVERY = 1000       # ranks_recovery: the world of one's
+RECOVERY_W1_MAXIT = 3000       # snapshot interval and fixed depth (2048^2)
+RECOVERY_NX = 1024             # ranks_recovery: the 4-rank drill's grid
+RECOVERY_EVERY = 200           # ... its snapshot interval,
+RECOVERY_KILL_AT = 600         # ... the update whose boundary kills,
+RECOVERY_KILL_RANK = 2         # ... the rank that dies,
+RECOVERY_MAXIT = 1000          # ... and its fixed depth
+
+
+def ranks_recovery_phase(dev, gpu, lap, op, prec, b, solve_kw) -> dict:
+    """Phase 22, checkpointed solves over ranks and the kill-a-rank
+    recovery drill (``MultiprocessBackend.solve(checkpoint=...)``,
+    ``fabric.run_resilient``, ``chaos.faults``):
+
+    1. a world of one over NCCL at ``main_solve``'s settings (laplace2d
+       2048^2, fused p(2)-CG, Jacobi, ``unroll=16``) to a fixed depth of
+       RECOVERY_W1_MAXIT updates with ``CheckpointConfig(every=
+       RECOVERY_W1_EVERY)`` on a fresh directory: its history and x
+       bitwise the same settings through ``rank_oracle_ops`` (one virtual
+       shard) on one device; a ``resume=True`` run of the same group
+       continues bitwise from the last snapshot; that snapshot has the
+       JAX package's treedef and leaves (``leaf_002``, the D ring, left
+       out; int32 counters) and, restored on one device through the
+       oracle, continues bitwise too;
+    2. four gloo ranks sharing the card, laplace2d at RECOVERY_NX^2,
+       fused p(2)-CG staged (2 stages), ``every=RECOVERY_EVERY``,
+       ``resume=True`` on a shared directory, to RECOVERY_MAXIT updates,
+       under ``launch.recovery.recovery_drill``: attempt 1 kills rank
+       RECOVERY_KILL_RANK at the boundary of update RECOVERY_KILL_AT
+       (exit 137), every survivor answers the SIGTERM with its flush
+       sentinel and 143; attempt 2 restores at a ``tot`` of at least
+       RECOVERY_KILL_AT - RECOVERY_EVERY with at most RECOVERY_EVERY
+       updates computed again, and its history and x are bitwise the
+       uninterrupted checkpointed run through ``rank_oracle_ops`` (4
+       virtual shards) on one device, the same on every rank;
+    3. the elastic restore: attempt 2's last snapshot restored by
+       ``LocalBackend(reduction="staged", virtual_shards=4)`` continues
+       bitwise the same snapshot restored through ``rank_oracle_ops``
+       (both unfused: LocalBackend's fused oracle files one whole-vector
+       partial, the JAX package's, so it is bitwise a fused rank run on
+       no card), with the head of its history bitwise attempt 2's.
+
+    Every fused rank run launches the halo plug-in (``fused_iter_halo``)
+    once a vector phase.  Returns the ranks' launches (attempt 2's and the
+    world of one's), by kernel."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from repro_torch.chaos import ChaosConfig
+    from repro_torch.checkpoint import (LAST_RESTORE, CheckpointConfig,
+                                        checkpointed_solve,
+                                        latest_checkpoint, load_checkpoint)
+    from repro_torch.checkpoint.solve import TREEDEF
+    from repro_torch.core.chebyshev import shifts_for_operator
+    from repro_torch.launch.recovery import recovery_drill
+    from repro_torch.linalg import JacobiPrec
+    from repro_torch.parallel.backends import LocalBackend
+    from repro_torch.parallel.distributed import rank_oracle_ops
+    from repro_torch.parallel.fabric import SIGTERM_EXIT_CODE, launch_fabric
+    from repro_torch.parallel.reduction import StagedConfig
+    from repro_torch.parallel.worker import digest
+
+    t_phase = time.perf_counter()
+    out = {"phase": "ranks_recovery", "gpu": gpu}
+    launches: dict = {}
+    checks: dict = {}
+    tmp = tempfile.mkdtemp(prefix="chip-smoke-recovery-")
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+
+    def add_launches(recs):
+        for rec in recs:
+            for k, v in rec.get("launches", {}).items():
+                launches[k] = launches.get(k, 0) + v
+
+    def snap_row(snaps):
+        if not snaps:
+            return None
+        return {"snapshots": len(snaps), "bytes": snaps[0]["bytes"],
+                **{f"{k}_ms": [1e3 * sn[k + "_s"] for sn in snaps]
+                   for k in ("rel", "gather", "copy", "hash", "write")}}
+
+    def oracle(o, pr, bb, kw, cfg, n_shards):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = checkpointed_solve(rank_oracle_ops(
+            o, pr, StagedConfig(n_shards, stages=min(2, max(n_shards - 1,
+                                                                1)))),
+            bb, "plcg", None, cfg, dict(kw))
+        torch.cuda.synchronize()
+        return r, time.perf_counter() - t0
+
+    try:
+        # ---- 1. a world of one over NCCL, 2048^2 -------------------------
+        w1_dir = os.path.join(tmp, "w1")
+        ck1 = os.path.join(tmp, "ckpt_w1")
+        os.makedirs(w1_dir)
+        np.savez(os.path.join(tmp, "lap.npz"), b=b.cpu().numpy(),
+                 sig=solve_kw["sigmas"].cpu().numpy())
+        np.savez(os.path.join(tmp, "lap_op.npz"), kind="stencil2d5",
+                 nx=op.nx, ny=op.ny)
+        w1_kw = dict(solve_kw, maxit=RECOVERY_W1_MAXIT)
+        solver = {k: v for k, v in w1_kw.items() if k != "sigmas"}
+        ckpt = {"every": RECOVERY_W1_EVERY, "directory": ck1}
+        tasks = [{"kind": "solve", "name": name,
+                  "operator": {"npz": os.path.join(tmp, "lap_op.npz")},
+                  "rhs": {"npz": os.path.join(tmp, "lap.npz"), "key": "b"},
+                  "sigmas": {"npz": os.path.join(tmp, "lap.npz"),
+                             "key": "sig"},
+                  "method": "plcg", "reduction": "monolithic",
+                  "solver": solver, "checkpoint": dict(ckpt, resume=resume)}
+                 for name, resume in (("full", False), ("resume", True))]
+        spec = os.path.join(w1_dir, "spec.json")
+        with open(spec, "w") as f:
+            json.dump({"backend": {"device": "cuda", "pg_backend": "nccl"},
+                       "out_dir": w1_dir, "threads": 2, "tasks": tasks}, f)
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        launch_fabric(lambda master, k: [sys.executable, "-m",
+                                         "repro_torch.parallel.worker", spec],
+                      1, env=env, cwd=ROOT, timeout_s=400,
+                      build_kernels=True)
+        w1_s = time.perf_counter() - t0
+        recs = {}
+        for t in tasks:
+            with open(os.path.join(w1_dir, f"{t['name']}.rank0.json")) as f:
+                recs[t["name"]] = json.load(f)
+        add_launches(recs.values())
+        full, resumed = recs["full"], recs["resume"]
+        o1, o1_s = oracle(op, prec, b, w1_kw,
+                          CheckpointConfig(every=RECOVERY_W1_EVERY), 1)
+        want = [digest(o1.x), digest(o1.res_history)]
+        last = latest_checkpoint(ck1)
+        payload, meta = load_checkpoint(last)
+        keys = sorted(payload)
+        # the snapshot restored on one device, through the oracle
+        ck1b = os.path.join(tmp, "ckpt_w1_one_device")
+        os.makedirs(ck1b)
+        shutil.copy(last, ck1b)
+        o1r, _ = oracle(op, prec, b, w1_kw,
+                        CheckpointConfig(every=RECOVERY_W1_EVERY,
+                                         directory=ck1b, resume=True), 1)
+        one_device_tot = int(LAST_RESTORE[-1].meta["tot"])
+        w1 = {"group_s": w1_s, "oracle_s": o1_s,
+              "iters": full["iters"], "restarts": full["restarts"],
+              "wall_s": full["wall_s"], "resume_wall_s": resumed["wall_s"],
+              "vector_phases": full["vector_phases"],
+              "ms_per_vector_phase": full["ms_per_vector_phase"],
+              "host_syncs": full["host_syncs"],
+              "restored": resumed["restored"],
+              "snapshot": snap_row(full["snapshots"]),
+              "launches": {"full": full["launches"],
+                           "resume": resumed["launches"]},
+              "snapshot_keys": keys, "snapshot_treedef": meta["treedef"],
+              "one_device_restore_tot": one_device_tot}
+        checks["world1_bitwise_vs_oracle"] = \
+            [full["x_sha256"], full["history_sha256"]] == want
+        checks["world1_resume_bitwise"] = (
+            resumed["restored"] is not None
+            and resumed["restored"]["tot"] > 0
+            and [resumed["x_sha256"], resumed["history_sha256"]] == want)
+        checks["world1_snapshot_jax_format"] = (
+            meta["treedef"] == TREEDEF["plcg"]
+            and keys == [f"leaf_{i:03d}" for i in range(19) if i != 2]
+            and payload["leaf_000"].dtype == np.float64
+            and payload["leaf_000"].shape[-1] == op.n
+            and all(payload[f"leaf_{i:03d}"].dtype == np.int32
+                    for i in (7, 9, 10, 11, 16)))
+        checks["world1_one_device_restore_bitwise"] = (
+            one_device_tot == resumed["restored"]["tot"]
+            and [digest(o1r.x), digest(o1r.res_history)] == want)
+        checks["world1_halo_plugin_every_vector_phase"] = all(
+            r["launches"].get("fused_iter_halo", 0) == r["vector_phases"] > 0
+            for r in recs.values())
+        out["world1_nccl"] = w1
+        del o1, o1r, payload
+
+        # ---- 2. four gloo ranks on the card: the kill-a-rank drill -------
+        small = type(op)(RECOVERY_NX, RECOVERY_NX, device=dev)
+        sprec = JacobiPrec.from_operator(small)
+        sb = torch.tensor(np.random.default_rng(31).standard_normal(small.n),
+                          device=dev)
+        s_kw = dict(solve_kw, maxit=RECOVERY_MAXIT,
+                    sigmas=shifts_for_operator(small, lap.l, prec=sprec))
+        np.savez(os.path.join(tmp, "small.npz"), b=sb.cpu().numpy(),
+                 sig=s_kw["sigmas"].cpu().numpy())
+        np.savez(os.path.join(tmp, "small_op.npz"), kind="stencil2d5",
+                 nx=RECOVERY_NX, ny=RECOVERY_NX)
+        ck4 = os.path.join(tmp, "ckpt_g4")
+        g4_dir = os.path.join(tmp, "g4")
+        os.makedirs(g4_dir)
+        task = {"kind": "solve", "name": "drill",
+                "operator": {"npz": os.path.join(tmp, "small_op.npz")},
+                "rhs": {"npz": os.path.join(tmp, "small.npz"), "key": "b"},
+                "sigmas": {"npz": os.path.join(tmp, "small.npz"),
+                           "key": "sig"},
+                "method": "plcg", "reduction": "staged", "stages": 2,
+                "solver": {k: v for k, v in s_kw.items() if k != "sigmas"},
+                "checkpoint": {"every": RECOVERY_EVERY, "directory": ck4,
+                               "resume": True}}
+        plan = ChaosConfig(seed=7, kill_rank=RECOVERY_KILL_RANK,
+                           kill_rank_at_iter=RECOVERY_KILL_AT).fault_plan()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        dr = recovery_drill(task, N_RANKS, g4_dir, plan,
+                            backend={"device": "cuda", "pg_backend": "gloo"},
+                            threads=2, env=env, cwd=ROOT, timeout_s=400,
+                            build_kernels=True)
+        drill_s = time.perf_counter() - t0
+        add_launches(dr["records"])
+        cfg4 = CheckpointConfig(every=RECOVERY_EVERY)
+        o4, o4_s = oracle(small, sprec, sb, s_kw, cfg4, N_RANKS)
+        want4 = [digest(o4.x), digest(o4.res_history)]
+        survivors = [r for r in range(N_RANKS) if r != RECOVERY_KILL_RANK]
+        codes = dr.get("attempt1_exit_codes") or []
+        g4 = {k: v for k, v in dr.items() if k not in ("records", "kills",
+                                                       "resumed")}
+        g4.update({
+            "drill_s": drill_s, "oracle_s": o4_s, "n": small.n,
+            "every": RECOVERY_EVERY, "kill_at": RECOVERY_KILL_AT,
+            "wall_s_by_rank": [r["wall_s"] for r in dr["records"]],
+            "ms_per_vector_phase": max(r["ms_per_vector_phase"] or 0
+                                       for r in dr["records"]),
+            "snapshot": snap_row(dr["records"][0]["snapshots"]),
+            "launches_by_rank": [r["launches"] for r in dr["records"]],
+            "wire_counts_rank0": dr["records"][0]["wire_counts"]})
+        checks["drill_one_planned_failure"] = (
+            dr["attempts"] == 2 and dr.get("failed_rank") == RECOVERY_KILL_RANK
+            and len(codes) == N_RANKS and codes[RECOVERY_KILL_RANK] == 137
+            and all(codes[r] == SIGTERM_EXIT_CODE for r in survivors)
+            and dr.get("attempt1_flushed_ranks") == survivors)
+        checks["drill_restore_and_recompute"] = (
+            dr.get("restored_tot", -1) >= RECOVERY_KILL_AT - RECOVERY_EVERY
+            and 0 < dr.get("recomputed_updates", -1) <= RECOVERY_EVERY
+            and dr["kill_upd"] - dr["restored_tot"] <= RECOVERY_EVERY)
+        checks["drill_bitwise_vs_oracle_on_every_rank"] = (
+            len(dr["results"]) == N_RANKS
+            and all([r["x_sha256"], r["history_sha256"]] == want4
+                    for r in dr["results"]))
+        checks["drill_halo_plugin_every_vector_phase"] = all(
+            r["launches"].get("fused_iter_halo", 0) == r["vector_phases"] > 0
+            for r in dr["records"])
+        out["gloo_4_ranks_drill"] = g4
+
+        # ---- 3. the elastic restore on the ladder oracle -----------------
+        arr = dict(np.load(os.path.join(g4_dir, "drill.npz")))
+        last4 = latest_checkpoint(ck4)
+        el_kw = dict(s_kw, fused_iteration=False)
+        got = {}
+        for name in ("local", "oracle"):
+            d = os.path.join(tmp, "elastic_" + name)
+            os.makedirs(d)
+            shutil.copy(last4, d)
+            ecfg = CheckpointConfig(every=RECOVERY_EVERY, directory=d,
+                                    resume=True)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if name == "local":
+                r = LocalBackend(device=dev, reduction="staged",
+                                 virtual_shards=N_RANKS).solve(
+                    small, sb, prec=sprec, checkpoint=ecfg, **el_kw)
+            else:
+                r, _ = oracle(small, sprec, sb, el_kw, ecfg, N_RANKS)
+            torch.cuda.synchronize()
+            got[name] = (r, time.perf_counter() - t0,
+                         dict(LAST_RESTORE[-1].meta))
+        (re_, re_s, meta_e), (ro, _, meta_o) = got["local"], got["oracle"]
+        h_e = re_.res_history.cpu().numpy()
+        upd = int(meta_e["upd"])           # the history is indexed by upd
+        head_ok = bool(np.array_equal(h_e[:upd + 1],
+                                      arr["res_history"][:upd + 1]))
+        _, tail = history_head_tail(h_e, arr["res_history"],
+                                    float(re_.norm0))
+        same = bool(torch.equal(re_.res_history, ro.res_history)
+                    and torch.equal(re_.x, ro.x))
+        out["elastic"] = {"restored_tot": int(meta_e["tot"]),
+                          "restored_upd": upd, "wall_s": re_s,
+                          "iters": int(re_.iters),
+                          "bitwise_vs_oracle_restore": same,
+                          "head_bitwise_vs_attempt2": head_ok,
+                          "unfused_tail_vs_fused_ranks_max": tail}
+        checks["elastic_restore_bitwise"] = (
+            meta_e["tot"] == meta_o["tot"] > 0 and head_ok and same)
+        del o4, re_, ro
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["launches"] = launches
+    out["seconds"] = time.perf_counter() - t_phase
+    emit(out)
+    emit({"phase": "ranks_recovery_checks", **checks})
+    if not all(checks.values()):
+        raise AssertionError("ranks_recovery failed: " + ", ".join(
+            k for k, v in checks.items() if not v))
+    return launches
 
 
 def main() -> int:
@@ -3990,13 +4327,17 @@ def main() -> int:
     # ---- 21. batched solves, the ring and governor, the service: ranks --
     from repro_torch.linalg.partition import plan_for
     rank_launches, rank_err, rank_timings = ranks_slab_phase(
-        dev, gpu, randn, phase_scal, lap, ice, op, prec, b, solve_kw, main,
-        main_digest, iop, iprec, ib, ice_kw, plan_for(iop, N_SHARDS))
+        dev, gpu, randn, phase_scal, lap, ice, op, prec, b, solve_kw, iop,
+        iprec, ib, ice_kw, plan_for(iop, N_SHARDS))
     timings["fused_iter_halo_slab"] = rank_timings["laplace2d"]
     timings["fused_iter_ell_halo_slab"] = rank_timings["icesheet3d"]
     err["fused_iter_halo_slab"] = max(rank_err["laplace2d"],
                                       rank_err["icesheet3d-stencil"])
     err["fused_iter_ell_halo_slab"] = rank_err["icesheet3d"]
+
+    # ---- 22. checkpointed solves over ranks, the recovery drill ----------
+    recovery_launches = ranks_recovery_phase(dev, gpu, lap, op, prec, b,
+                                             solve_kw)
 
     # ---- contract lines --------------------------------------------------
     src_dir = "src/repro_torch/kernels/csrc/"
@@ -4057,7 +4398,8 @@ def main() -> int:
             "launches_stability": stab_launches.get(name, 0),
             "launches_checkpoint": ckpt_launches.get(name, 0),
             "launches_overlap": overlap_launches.get(name, 0),
-            "launches_ranks_slab": rank_launches.get(name, 0)})
+            "launches_ranks_slab": rank_launches.get(name, 0),
+            "launches_ranks_recovery": recovery_launches.get(name, 0)})
     for k in kernels:
         if k["launches"] == 0:
             raise AssertionError(f"{k['name']} was never launched on its path")

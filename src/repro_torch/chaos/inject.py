@@ -31,10 +31,6 @@ import torch
 from repro_torch.core.types import SolverOps
 
 MASK32 = 0xFFFFFFFF
-# Where the process-level faults stand in the roadmap.
-PROCESS_FAULTS = ("process-level faults (slow ranks, rank kills, "
-                  "chaos/faults.py) are not ported yet (ROADMAP.md, queue "
-                  "1 item 6b)")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -46,10 +42,17 @@ class ChaosConfig:
     entries perturbed (chosen by a second value hash), ``seed`` mixed into
     both hashes.
 
-    Process level (``kill_rank``/``kill_rank_at_iter``,
-    ``stall_rank``/``stall_rank_at_iter``/``stall_rank_for_s``): the
-    fields are kept so one config describes a drill, but the fault plan
-    that executes them is not ported (``fault_plan`` raises)."""
+    Process level (executed by ``repro_torch.chaos.faults`` in the ranks
+    of a group; iteration-indexed faults fire at checkpoint segment
+    boundaries, so a recovery drill is deterministic):
+    ``kill_rank``/``kill_rank_at_iter`` hard-kill that rank at the first
+    boundary reaching the update count; ``stall_rank``/
+    ``stall_rank_at_iter``/``stall_rank_for_s`` one seeded-jitter sleep
+    at a boundary, the wedged rank the heartbeat watchdog names.
+
+    ``fault_plan()`` turns the process-level fields into the
+    :class:`repro_torch.chaos.faults.FaultPlan` a launch ships to its
+    ranks."""
 
     seed: int = 0
     payload_rel_amp: float = 0.0
@@ -61,7 +64,14 @@ class ChaosConfig:
     stall_rank_for_s: float = 0.0
 
     def fault_plan(self):
-        raise NotImplementedError(PROCESS_FAULTS)
+        from repro_torch.chaos.faults import FaultPlan
+
+        return FaultPlan(kill_rank=self.kill_rank,
+                         kill_at_iter=self.kill_rank_at_iter,
+                         stall_rank=self.stall_rank,
+                         stall_at_iter=self.stall_rank_at_iter,
+                         stall_for_s=self.stall_rank_for_s,
+                         seed=self.seed)
 
 
 def _mul32(h: torch.Tensor, c: int) -> torch.Tensor:

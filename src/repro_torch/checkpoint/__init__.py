@@ -1,11 +1,13 @@
-"""Checkpoint and restore of one-device solves (counterpart of
+"""Checkpoint and restore of solves (counterpart of
 ``repro.checkpoint``): ``CheckpointConfig(every=k)`` arms a segmented
 drive that snapshots the solver state at drained-ring interrupt
 boundaries, in the JAX package's content-hashed, versioned file format,
 and resumes bitwise on the same device (certified by one true-residual
 recompute on restore).  ``every=0`` leaves the solvers' path untouched.
-Over ranks (``MultiprocessBackend``) checkpointing is refused (ROADMAP.md,
-queue 1 item 6b, part two)."""
+Over ranks (``MultiprocessBackend``) the vector leaves are gathered at each
+boundary and rank 0 writes the same file, which a restore on any rank
+count of the same row order, or on one device, reads back
+(``parallel.distributed.distributed_checkpointed_solve``)."""
 
 from repro_torch.checkpoint.format import (CKPT_VERSION,
                                            CheckpointCertificationError,
@@ -23,7 +25,8 @@ from repro_torch.checkpoint.solve import (LAST_RESTORE, SNAPSHOTS,
                                           load_slab_checkpoint, make_rel_fn,
                                           run_segmented,
                                           save_slab_checkpoint,
-                                          state_payload, state_restore)
+                                          state_payload, state_restore,
+                                          vector_leaves)
 
 __all__ = [
     "CKPT_VERSION",
@@ -47,6 +50,7 @@ __all__ = [
     "state_restore",
     "save_slab_checkpoint",
     "load_slab_checkpoint",
+    "vector_leaves",
     "LAST_RESTORE",
     "SNAPSHOTS",
 ]

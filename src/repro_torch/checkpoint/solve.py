@@ -38,6 +38,16 @@ conversion is explicit:
   else from the counters; the ring's sink row and the drained D ring from
   the restoring program's own fresh state.
 
+Over ranks (``parallel.distributed.distributed_checkpointed_solve``) each
+rank holds its rows of the vector leaves (:func:`vector_leaves`) and the
+rest replicated.  Two hooks make the one-device drive serve a rank: the
+snapshot's ``gather`` makes the vector leaves whole on every rank before
+the copy to the host, and only the writer (rank 0) hashes and writes;
+``try_restore``'s ``scatter`` hands each rank its rows of the stored
+vector leaves.  The file is the one-device file, its rows in the
+partition's order, so it restores on any rank count whose partition keeps
+that order, and on one device.
+
 Slab snapshots (``save_slab_checkpoint``) hold the port's (s, n) slab
 state as it is at a chunk boundary, its per-column host counters as
 arrays: port to port only (the JAX slab state is vmapped).
@@ -260,6 +270,27 @@ def _to_host(tensors: list) -> list[np.ndarray]:
     if wait:
         torch.cuda.synchronize()
     return [v.numpy() for v in out]
+
+
+def vector_leaves(method: str) -> tuple[int, ...]:
+    """Indices, in the payload's leaf order, of the leaves whose trailing
+    axis is the vector axis n (``core.batched.vector_mask``): over ranks
+    each rank holds its rows of them, and every other leaf is the same on
+    every rank.  The D ring, which the payload excludes, is left out."""
+    from repro_torch.core.batched import vector_mask
+
+    flags: dict = {}
+    todo = [vector_mask(method)]
+    while todo:
+        m = todo.pop()
+        for name, v in m._asdict().items():
+            if isinstance(v, tuple):
+                todo.append(v)
+            else:
+                flags[name] = v
+    return tuple(i for i, name in enumerate(LEAVES[method])
+                 if flags.get(name) and not (method == "plcg"
+                                             and name == "D"))
 
 
 def exclude_mask(method: str, state) -> tuple[bool, ...]:
@@ -488,14 +519,19 @@ SNAPSHOTS: list[dict] = []
 
 
 def try_restore(template, cfg: CheckpointConfig, expect_meta: dict,
-                mask, rel_of_state: Callable[[Any], Any]):
+                mask, rel_of_state: Callable[[Any], Any],
+                scatter: Callable[[dict], dict] | None = None):
     """Load + certify the latest checkpoint in ``cfg.directory`` onto
-    ``template``'s device; the template unchanged when there is none."""
+    ``template``'s device; the template unchanged when there is none.
+    ``scatter`` (over ranks) maps the stored payload to this rank's: its
+    rows of every vector leaf."""
     path = latest_checkpoint(cfg.directory) if cfg.directory else None
     if path is None:
         return template
     payload, meta = load_checkpoint(path)
     check_meta(meta, expect_meta)
+    if scatter is not None:
+        payload = scatter(payload)
     st = state_restore(template, payload, mask, meta.get("clock"))
     rel_now = float(rel_of_state(st))
     rel_saved = float(meta["rel_true"])
@@ -510,29 +546,42 @@ def try_restore(template, cfg: CheckpointConfig, expect_meta: dict,
 
 
 def make_snapshot_fn(cfg: CheckpointConfig, meta_base: dict, mask,
-                     method: str, rel_of_state):
+                     method: str, rel_of_state,
+                     gather: Callable[[list], list] | None = None,
+                     is_writer: bool = True):
     """The per-boundary snapshot callback (None when ``cfg`` has no
     directory): the true residual and the state reach the host in one
-    synchronisation, then the hash and an atomic write."""
+    synchronisation, then the hash and an atomic write.  Over ranks
+    ``gather`` maps the state's payload leaves (in leaf order) to whole
+    ones on every rank, and only the writer (``is_writer``) copies,
+    hashes and writes."""
     if cfg.directory is None:
         return None
-    os.makedirs(cfg.directory, exist_ok=True)
+    if is_writer:
+        os.makedirs(cfg.directory, exist_ok=True)
+    keep = [i for i, e in enumerate(mask) if not e]
 
     def snapshot(st):
         vals = _leaves(st)
-        keep = [i for i, e in enumerate(mask) if not e]
         cuda = vals[0].device.type == "cuda"
         if cuda:
-            ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
             ev[0].record()
         t0 = time.perf_counter()
         rel_t = rel_of_state(st).reshape(1)
         t1 = time.perf_counter()
         if cuda:
             ev[1].record()
-        host, wait = _copy_async([rel_t] + [vals[i] for i in keep])
+        if gather is not None:
+            vals = gather(vals)
+        tg = time.perf_counter()
         if cuda:
             ev[2].record()
+        if not is_writer:
+            return
+        host, wait = _copy_async([rel_t] + [vals[i] for i in keep])
+        if cuda:
+            ev[3].record()
         if wait:
             torch.cuda.synchronize()        # the snapshot's one host read
         t2 = time.perf_counter()
@@ -553,7 +602,8 @@ def make_snapshot_fn(cfg: CheckpointConfig, meta_base: dict, mask,
         SNAPSHOTS.append({
             "path": path, "bytes": sum(a.nbytes for a in payload.values()),
             "rel_s": ev[0].elapsed_time(ev[1]) / 1e3 if cuda else t1 - t0,
-            "copy_s": ev[1].elapsed_time(ev[2]) / 1e3 if cuda else t2 - t1,
+            "gather_s": ev[1].elapsed_time(ev[2]) / 1e3 if cuda else tg - t1,
+            "copy_s": ev[2].elapsed_time(ev[3]) / 1e3 if cuda else t2 - tg,
             "hash_s": t3 - t2, "write_s": t4 - t3})
 
     return snapshot
@@ -565,12 +615,21 @@ def make_snapshot_fn(cfg: CheckpointConfig, meta_base: dict, mask,
 # --------------------------------------------------------------------------
 
 def checkpointed_solve(ops, b: torch.Tensor, method: str, x0,
-                       cfg: CheckpointConfig, kw: dict):
+                       cfg: CheckpointConfig, kw: dict, *,
+                       n: int | None = None,
+                       gather: Callable[[list], list] | None = None,
+                       scatter: Callable[[dict], dict] | None = None,
+                       is_writer: bool = True):
     """The solve of ``effective_kw(method, kw, cfg.every)`` through the
     host loop, with the boundary hooks around each interrupt; resumes from
     the latest snapshot when ``cfg.resume``.  ``result.host_syncs`` counts
     the loop's reads and the hooks' (one a boundary for ``on_boundary``,
-    one a snapshot, one a restore)."""
+    one a snapshot, one a restore).
+
+    Over ranks ``ops`` and ``b`` are a rank's, ``n`` is the global length
+    (stored in the meta), and ``gather``, ``scatter`` and ``is_writer``
+    are the snapshot's and the restore's hooks (:func:`make_snapshot_fn`,
+    :func:`try_restore`)."""
     from repro_torch.core.batched import BUILDERS
     from repro_torch.device import as_tensor
 
@@ -590,14 +649,17 @@ def checkpointed_solve(ops, b: torch.Tensor, method: str, x0,
     def rel_of_state(s):
         return rel(ops, b, s)
 
-    meta_base = solver_meta(method, b.shape[-1], b.dtype, kw, cfg.every)
+    meta_base = solver_meta(method, b.shape[-1] if n is None else n,
+                            b.dtype, kw, cfg.every)
     meta_base["treedef"] = state_treedef_str(st)
     reads = 0
     if cfg.resume:
-        restored = try_restore(st, cfg, meta_base, mask, rel_of_state)
+        restored = try_restore(st, cfg, meta_base, mask, rel_of_state,
+                               scatter)
         reads += restored is not st
         st = restored
-    snapshot = make_snapshot_fn(cfg, meta_base, mask, method, rel_of_state)
+    snapshot = make_snapshot_fn(cfg, meta_base, mask, method, rel_of_state,
+                                gather, is_writer)
     step = prog.iteration if method == "plcg" else prog.step
     st, syncs = run_segmented(st, cond=prog.cond, needs=prog.needs_interrupt,
                               step=step, interrupt=prog.interrupt,

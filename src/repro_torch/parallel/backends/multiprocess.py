@@ -33,8 +33,12 @@ s columns' (s, 2l+1) dot block is ONE all-reduce or one ladder an
 iteration, and ``repro_torch.serve.SolverService`` serves over a backend
 of several ranks with rank 0 leading (``serve.service``).  Instrumented
 (``telemetry_cap > 0``) and governed solves return their ring and
-governor vector replicated, the same bits on every rank.  Checkpointed
-solves over ranks are not ported (queue 1 item 6b): they raise.
+governor vector replicated, the same bits on every rank.  A
+checkpointed solve (``checkpoint=CheckpointConfig(every > 0, ...)``)
+snapshots at drained-ring boundaries, the vector leaves gathered and rank
+0 writing, in the one-device file format; with ``resume=True`` on a shared
+directory a fresh group continues from the last snapshot
+(``parallel.distributed.distributed_checkpointed_solve``).
 """
 
 from __future__ import annotations
@@ -132,19 +136,20 @@ class MultiprocessBackend(ReductionBackend):
         """Solve A x = b over the group's ranks; every rank passes the
         same global ``op`` and ``b``.  ``x`` of the result is the whole
         solution on every rank; an instrumented or governed solve's ring
-        and governor vector are replicated."""
-        from repro_torch.parallel.distributed import distributed_solve
+        and governor vector are replicated.  ``checkpoint`` with
+        ``every > 0`` runs the checkpointed solve over the ranks."""
+        from repro_torch.parallel import distributed
 
         self._check_method(method)
         ckpt = solver_kwargs.pop("checkpoint", None)
-        if ckpt is not None and getattr(ckpt, "armed", True):
-            raise NotImplementedError(
-                "checkpointed solves over ranks are not ported yet "
-                "(ROADMAP.md, queue 1 item 6b)")
-        return distributed_solve(self.wire, op, as_rhs(b, self.device),
-                                 method=method, prec=prec,
-                                 reduction=self.reduction_cfg,
-                                 **solver_kwargs)
+        if ckpt is not None and ckpt.armed:
+            return distributed.distributed_checkpointed_solve(
+                self.wire, op, as_rhs(b, self.device), method=method,
+                prec=prec, reduction=self.reduction_cfg, checkpoint=ckpt,
+                **solver_kwargs)
+        return distributed.distributed_solve(
+            self.wire, op, as_rhs(b, self.device), method=method, prec=prec,
+            reduction=self.reduction_cfg, **solver_kwargs)
 
     def run(self, fn, op, b, prec=None, x0=None):
         """``fn(ops, b_local)`` on this rank's SolverOps and block of

@@ -55,7 +55,8 @@ __all__ = ["halo_first_dim", "plane_messages", "halo_planes",
            "fused_spmv_local", "shard_arrays", "partitioned_solver_ops",
            "stacked_fused_factory", "rank_oracle_ops",
            "distributed_solve", "distributed_solve_batched",
-           "distributed_slab_program", "rank_problem", "owned_rows",
+           "distributed_slab_program", "distributed_checkpointed_solve",
+           "rank_problem", "owned_rows", "RankSnapshot",
            "AllReduceHandles"]
 
 
@@ -644,6 +645,90 @@ def distributed_solve(wire, op, b, method: str = "plcg", prec=None,
         kwargs["x0"] = rp.rows(torch.as_tensor(kwargs["x0"], device=b.device,
                                                dtype=b.dtype))
     return rp.result(METHODS[method](rp.ops, rp.rows(b), kwargs))
+
+
+class RankSnapshot:
+    """The checkpoint hooks of rank ``rank`` of ``n_shards``, each rank
+    holding its block of ``nl`` rows of a state's vector leaves
+    (``checkpoint.solve.vector_leaves``; the rest is replicated).
+
+    ``pack`` stacks the rank's vector leaves into one (m, nl) block,
+    ``unpack`` takes the whole (m, n) block (every rank's, in rank order:
+    what one all-gather along the last axis gives) back into whole leaves,
+    and ``scatter`` cuts a stored payload to the rank's rows.  Rows are in
+    the partition's order (``perm``), as the state holds them."""
+
+    def __init__(self, method: str, n_shards: int, rank: int, nl: int):
+        from repro_torch.checkpoint.solve import vector_leaves
+
+        self.index = vector_leaves(method)
+        self.n_shards, self.rank, self.nl = n_shards, rank, nl
+
+    def pack(self, leaves: list) -> torch.Tensor:
+        return torch.cat([leaves[i].reshape(-1, self.nl)
+                          for i in self.index])
+
+    def unpack(self, leaves: list, whole: torch.Tensor) -> list:
+        out, row = list(leaves), 0
+        for i in self.index:
+            lead = tuple(leaves[i].shape[:-1])
+            m = int(np.prod(lead, dtype=np.int64))
+            out[i] = whole[row:row + m].reshape(lead + (-1,))
+            row += m
+        return out
+
+    def gather(self, leaves: list, wire) -> list:
+        """Whole vector leaves on every rank: ONE all-gather."""
+        if not self.index:
+            return list(leaves)
+        return self.unpack(leaves, wire.all_gather(self.pack(leaves),
+                                                   dim=-1))
+
+    def scatter(self, payload: dict) -> dict:
+        from repro_torch.checkpoint.format import CheckpointMismatchError
+
+        n, lo = self.nl * self.n_shards, self.rank * self.nl
+        out = dict(payload)
+        for i in self.index:
+            key = f"leaf_{i:03d}"
+            a = payload.get(key)
+            if a is None or a.ndim < 1 or a.shape[-1] != n:
+                raise CheckpointMismatchError(
+                    f"{key}: stored {None if a is None else a.shape}, "
+                    f"want a trailing axis of {n} rows")
+            out[key] = np.ascontiguousarray(a[..., lo:lo + self.nl])
+        return out
+
+
+def distributed_checkpointed_solve(wire, op, b, method: str = "plcg",
+                                   prec=None, reduction=None,
+                                   checkpoint=None, x0=None,
+                                   **kwargs) -> SolveResult:
+    """The checkpointed solve over ranks (the JAX package's
+    ``distributed_checkpointed_solve``): each rank runs its
+    :func:`rank_problem` ops through the one-device segmented drive
+    (``checkpoint.solve.checkpointed_solve``), whose host decisions read
+    replicated scalars only, so every rank takes the same branch; the
+    true-residual recompute reduces over the wire (its dot through the
+    solver's start and wait).  At each drained-ring boundary the vector
+    leaves are gathered (one all-gather, :class:`RankSnapshot`) in the
+    partition's row order and rank 0 alone writes; a restore hands each
+    rank its rows.  The payload excludes the D ring, so a snapshot written
+    by P ranks restores on another rank count or on one device
+    (``LocalBackend(reduction="staged", virtual_shards=P)``) through the
+    gather alone.  ``x0`` is whole, like ``b``; the result's x is the
+    whole solution in the operator's order."""
+    from repro_torch.checkpoint.solve import checkpointed_solve
+
+    rp = rank_problem(wire, op, prec, reduction)
+    if x0 is not None:
+        x0 = rp.rows(torch.as_tensor(x0, device=b.device, dtype=b.dtype))
+    hooks = RankSnapshot(method, wire.size, wire.rank, rp.nl)
+    res = checkpointed_solve(
+        rp.ops, rp.rows(b), method, x0, checkpoint, kwargs, n=op.n,
+        gather=lambda leaves: hooks.gather(leaves, wire),
+        scatter=hooks.scatter, is_writer=wire.rank == 0)
+    return rp.result(res)
 
 
 def distributed_solve_batched(wire, op, B, method: str = "plcg", prec=None,

@@ -19,6 +19,11 @@ launch_fabric`` starts.  The spec names the backend (``device``,
   ``governor`` (the ``stability.GovernorConfig`` fields): an
   instrumented, governed solve, whose ring and governor vector every
   rank records.
+  A ``checkpoint`` dict (the ``checkpoint.CheckpointConfig`` fields
+  ``every``, ``directory``, ``keep``, ``resume``, ``certify_rtol``) makes
+  it a checkpointed solve; the record then holds the restore's ``tot``
+  and ``upd`` and this rank's snapshots (bytes, gather / copy / hash /
+  write seconds).
 * ``{"kind": "governed", ...}``: as ``solve``, through
   ``stability.governed_solve`` (the depth ladder: each attempt re-enters
   the solve at its l over the same wire); ``solver`` holds ``l``.
@@ -41,6 +46,19 @@ traffic, times, digests of x, the history, the ring and the governor
 vector) into the output directory, and rank 0 also ``<name>.npz`` (x,
 res_history, norm0, telemetry, governor; the served requests' solutions;
 or the merged decode output).
+
+A spec with a ``drill`` entry (``{"sentinel_dir": path}``) makes the rank
+one of a recovery drill (``repro_torch.launch.recovery``).  At start-up it
+installs ``fabric.install_sigterm_handler`` with a flush that writes
+``<sentinel_dir>/term.rank<r>``, touches its heartbeat, runs
+``chaos.apply_from_env`` and decodes its ``chaos.install_iteration_faults``.
+A checkpointed solve's ``on_boundary`` then touches the heartbeat and
+ticks the faults, printing a ``RECOVERY-KILL`` line (``upd``, time) before
+a scripted death; after the solve the rank prints ``RECOVERY-RESUMED``
+(the restore's ``tot`` and ``upd``) when it restored and
+``RECOVERY-RESULT`` (updates, restarts, converged, digests of the history
+and x).  A solve that fails because a peer died waits for the launcher's
+SIGTERM, so the rank leaves with 143, not with an error of its own.
 """
 
 from __future__ import annotations
@@ -54,7 +72,13 @@ import time
 import numpy as np
 import torch
 
-__all__ = ["decode_split", "digest", "load_npz", "main"]
+__all__ = ["decode_split", "digest", "load_npz", "main", "RECOVERY_KILL",
+           "RECOVERY_RESUMED", "RECOVERY_RESULT", "TEARDOWN_WAIT_S"]
+
+RECOVERY_KILL = "RECOVERY-KILL "
+RECOVERY_RESUMED = "RECOVERY-RESUMED "
+RECOVERY_RESULT = "RECOVERY-RESULT "
+TEARDOWN_WAIT_S = 30.0    # a drill rank's wait for SIGTERM after a failure
 
 
 def load_npz(path: str) -> dict:
@@ -141,8 +165,32 @@ def _solver_kw(task: dict, dev) -> dict:
     return kw
 
 
-def _solve(be, task: dict, out_dir: str, cache: dict) -> dict:
+def _marker(prefix: str, row: dict) -> None:
+    print(prefix + json.dumps(row, sort_keys=True), flush=True)
+
+
+def _checkpoint_cfg(task: dict, rank: int, faults):
+    """The task's ``CheckpointConfig``; in a drill (``faults`` not None)
+    its ``on_boundary`` touches the heartbeat and ticks the faults."""
+    from repro_torch.checkpoint import CheckpointConfig
+    from repro_torch.parallel.fabric import touch_heartbeat
+
+    on_boundary = None
+    if faults is not None:
+        def on_boundary(upd: int) -> None:
+            touch_heartbeat()
+            if faults.kill_at_iter is not None and upd >= faults.kill_at_iter:
+                _marker(RECOVERY_KILL, {"rank": rank, "upd": int(upd),
+                                        "t": time.time()})
+            faults.tick(upd)
+
+    return CheckpointConfig(**task["checkpoint"], on_boundary=on_boundary)
+
+
+def _solve(be, task: dict, out_dir: str, cache: dict,
+           faults=None) -> dict:
     """A ``solve``, ``governed`` or ``solve_batched`` task."""
+    from repro_torch.checkpoint import LAST_RESTORE, SNAPSHOTS
     from repro_torch.kernels import _build
     from repro_torch.linalg import JacobiPrec
     from repro_torch.linalg.partition import plan_for
@@ -158,7 +206,10 @@ def _solve(be, task: dict, out_dir: str, cache: dict) -> dict:
     b = _array(task["rhs"], dev)
     setup_s = time.perf_counter() - t0
     kw = _solver_kw(task, dev)
+    if task.get("checkpoint"):
+        kw["checkpoint"] = _checkpoint_cfg(task, be.rank, faults)
     method = task.get("method", "plcg")
+    restores, snaps = len(LAST_RESTORE), len(SNAPSHOTS)
     be.wire.reset_counts()
     torch.distributed.barrier()
     _sync(dev)
@@ -196,6 +247,20 @@ def _solve(be, task: dict, out_dir: str, cache: dict) -> dict:
            "governor_sha256": (None if res.governor is None
                                else digest(res.governor)),
            "attempts": attempts}
+    if task.get("checkpoint"):
+        got = LAST_RESTORE[restores:]
+        rec["restored"] = ({"tot": int(got[-1].meta["tot"]),
+                            "upd": int(got[-1].meta["upd"]),
+                            "path": os.path.basename(got[-1].path)}
+                           if got else None)
+        rec["snapshots"] = [{k: v for k, v in r.items() if k != "path"}
+                            for r in SNAPSHOTS[snaps:]]
+        if rec["restored"] is not None:
+            _marker(RECOVERY_RESUMED, dict(rec["restored"], rank=be.rank,
+                                           t=time.time()))
+        _marker(RECOVERY_RESULT, {
+            k: rec[k] for k in ("rank", "iters", "restarts", "converged",
+                                "history_sha256", "x_sha256")})
     if kind == "solve_batched" and task.get("overlap"):
         from repro_torch.utils.trace import batched_plcg_overlap_report
 
@@ -305,6 +370,38 @@ def _decode_merge(be, task: dict, out_dir: str, cache: dict) -> dict:
     return rec
 
 
+def _drill_start(drill: dict):
+    """A drill rank's start-up: the SIGTERM flush (a sentinel file), the
+    heartbeat, the plan's start-up faults; returns its iteration faults."""
+    from repro_torch.chaos import apply_from_env, install_iteration_faults
+    from repro_torch.parallel.fabric import (install_sigterm_handler,
+                                             touch_heartbeat)
+
+    rank = int(os.environ["RANK"])
+    sentinel = os.path.join(drill["sentinel_dir"], f"term.rank{rank}")
+
+    def flush() -> None:
+        with open(sentinel, "w") as f:
+            f.write("flushed")
+
+    install_sigterm_handler(flush)
+    touch_heartbeat()
+    apply_from_env(rank)
+    faults = install_iteration_faults(rank)
+    print(f"drill rank {rank}: handler armed, faults armed "
+          f"{faults.armed}", flush=True)
+    return faults
+
+
+def _await_teardown() -> None:
+    """A drill rank whose solve failed (a peer died under it) waits for
+    the launcher's SIGTERM, whose handler exits 143; after
+    ``TEARDOWN_WAIT_S`` it gives up and the failure propagates."""
+    deadline = time.monotonic() + TEARDOWN_WAIT_S
+    while time.monotonic() < deadline:
+        time.sleep(0.05)
+
+
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     with open(argv[0]) as f:
@@ -317,6 +414,7 @@ def main(argv=None) -> int:
     bk = spec.get("backend", {})
     out_dir = spec["out_dir"]
     cache: dict = {}
+    faults = _drill_start(spec["drill"]) if spec.get("drill") else None
     try:
         for task in spec["tasks"]:
             be = get_backend(
@@ -329,7 +427,16 @@ def main(argv=None) -> int:
             run = {"solve": _solve, "governed": _solve,
                    "solve_batched": _solve, "serve": _serve,
                    "decode_merge": _decode_merge}[task["kind"]]
-            rec = run(be, task, out_dir, cache)
+            try:
+                rec = (run(be, task, out_dir, cache, faults)
+                       if run is _solve else run(be, task, out_dir, cache))
+            except Exception:
+                if faults is None:
+                    raise
+                print(f"rank {be.rank}: the solve failed; waiting for the "
+                      "launcher's teardown", flush=True)
+                _await_teardown()
+                raise
             path = os.path.join(out_dir, f"{task['name']}.rank{be.rank}.json")
             with open(path, "w") as f:
                 json.dump(rec, f)

@@ -323,10 +323,16 @@ def test_chaos_ops_wraps_only_the_wait():
 
 
 def test_process_faults_refused():
-    """The process-level half of ChaosConfig is not ported: its fault
-    plan raises, naming the roadmap item."""
-    with pytest.raises(NotImplementedError, match="item 6b"):
-        ChaosConfig(kill_rank=1, kill_rank_at_iter=3).fault_plan()
+    """The process-level half of ChaosConfig is no longer refused: its
+    fault plan is the ``chaos.faults.FaultPlan`` of its fields
+    (tests/test_torch_faults.py holds it against the JAX package's)."""
+    from repro_torch.chaos import FaultPlan
+
+    plan = ChaosConfig(seed=4, kill_rank=1, kill_rank_at_iter=3,
+                       stall_rank=0, stall_rank_at_iter=2,
+                       stall_rank_for_s=0.5).fault_plan()
+    assert plan == FaultPlan(kill_rank=1, kill_at_iter=3, stall_rank=0,
+                             stall_at_iter=2, stall_for_s=0.5, seed=4)
 
 
 @pytest.mark.parametrize("kw", [dict(governor=GovernorConfig()),
@@ -335,21 +341,29 @@ def test_multiprocess_backend_refuses_governor_and_telemetry(kw, monkeypatch):
     """Over ranks the ring and the governor are no longer refused: the
     backend hands them to ``distributed_solve`` unchanged (whose rings and
     governor vectors are replicated: tests/test_torch_batched_ranks.py).
-    What it still refuses out loud, before any wire is touched and naming
-    the roadmap item, is a checkpointed solve, with or without them; the
-    backend object is made without joining a process group."""
+    A checkpointed solve, with or without them, is no longer refused: it
+    goes to ``distributed_checkpointed_solve`` with its config and them
+    (tests/test_torch_checkpoint_ranks.py runs it); ``every=0`` is the
+    plain solve.  The backend object is made without joining a process
+    group."""
     from repro_torch.checkpoint import CheckpointConfig
     from repro_torch.parallel import distributed
 
     be = MultiprocessBackend.__new__(MultiprocessBackend)
     be.device, be.wire, be.reduction_cfg = torch.device("cpu"), None, None
     top = convert.operator("stencil2d5", nx=8, ny=8, device="cpu")
-    seen = {}
+    seen, ckpt_seen = {}, {}
     monkeypatch.setattr(distributed, "distributed_solve",
                         lambda wire, op, b, **k: seen.update(k))
+    monkeypatch.setattr(distributed, "distributed_checkpointed_solve",
+                        lambda wire, op, b, **k: ckpt_seen.update(k))
     be.solve(top, np.ones(top.n), method="plcg", l=2, **kw)
     assert all(seen[k] is v for k, v in kw.items())
-    with pytest.raises(NotImplementedError, match="item 6b"):
-        be.solve(top, np.ones(top.n), method="plcg", l=2,
-                 checkpoint=CheckpointConfig(every=4, directory="unused"),
-                 **kw)
+    seen.clear()
+    be.solve(top, np.ones(top.n), method="plcg", l=2,
+             checkpoint=CheckpointConfig(every=0), **kw)
+    assert all(seen[k] is v for k, v in kw.items()) and not ckpt_seen
+    cfg = CheckpointConfig(every=4, directory="unused")
+    be.solve(top, np.ones(top.n), method="plcg", l=2, checkpoint=cfg, **kw)
+    assert ckpt_seen["checkpoint"] is cfg
+    assert all(ckpt_seen[k] is v for k, v in kw.items())
