@@ -2923,12 +2923,13 @@ def halo_slab_checks(dev, randn, phase_scal, operators: dict,
     2, Jacobi, each column at its own cycle index) on each of the
     N_SHARDS shards of every operator in ``operators``: one launch of the
     slab against its plain version (rows bitwise, partials within
-    PARTIAL_BOUND of sum |m u|), the operands every column's halo from the
-    in-process halo of the whole slab's ring-top rows.  Then shard 1's
-    slab launch timed (events, profiler), its plain version, the SLAB_S
-    single-column launches it replaces, and its bound: every column's
-    rows and halo, the inverse diagonal and the ELL cols/vals once
-    (``fused_iter.min_bytes``) over PEAK_BYTES_PER_S.  Returns (launches,
+    PARTIAL_BOUND of sum |m u|) and each column against the single-column
+    launch it replaces (rows and partials bitwise), the operands every
+    column's halo from the in-process halo of the whole slab's ring-top
+    rows.  Then shard 1's slab launch timed (events, profiler), its plain
+    version, the SLAB_S single-column launches it replaces, and its bound:
+    every column's rows and halo, the inverse diagonal and the ELL
+    cols/vals once (``fused_iter.min_bytes``) over PEAK_BYTES_PER_S.  Returns (launches,
     errors, timings) keyed ``fused_iter_halo_slab`` (laplace2d) and
     ``fused_iter_ell_halo_slab``."""
     import torch
@@ -2962,6 +2963,7 @@ def halo_slab_checks(dev, randn, phase_scal, operators: dict,
             ext = halo_first_dim(zt, op.n // op.nx)
             locs = [{} for _ in range(p)]
         rows_err, part_err, fiters = 0.0, 0.0, []
+        columns_same = True
         for r in range(p):
             e_r = ext[:, r].contiguous()
             spmv = fused_spmv_local(op, locs[r], p, lambda z, e=e_r: e)
@@ -2981,6 +2983,13 @@ def halo_slab_checks(dev, randn, phase_scal, operators: dict,
                 scale = (mat.abs() * u.abs()[None, :]).sum(dim=1)
                 part_err = max(part_err, float(((d_k[c] - d_p).abs()
                                                 / scale).max()))
+                # the single-column launch this column of the slab replaces
+                S_1, d_1 = fi.build_fused_iteration(layout, fused_spmv_local(
+                    op, locs[r], p, lambda z, e=e_r[c]: e), inv)(
+                        S_r[c].clone(), idx[c], scal[c])
+                columns_same = columns_same and bool(
+                    torch.equal(S_1, S_k[c]) and torch.equal(d_1, d_k[c]))
+                del S_1
             fiters.append((f, S_r, inv, e_r))
             del S_p, S_k
         key = "fused_iter_ell_halo_slab" if isinstance(op, SparseOp) \
@@ -2988,8 +2997,10 @@ def halo_slab_checks(dev, randn, phase_scal, operators: dict,
         errs[name] = rows_err
         out[name] = {"rows_max_abs_diff": rows_err,
                      "partials_max_diff_over_abs_sum": part_err,
+                     "columns_bitwise_vs_single_launches": columns_same,
                      "launch_key": key}
-        if rows_err != 0 or not part_err <= PARTIAL_BOUND:
+        if rows_err != 0 or not part_err <= PARTIAL_BOUND \
+                or not columns_same:
             failed.append(name)
         f, S_r, inv, e_r = fiters[1]
         halo = f.spmv.ext_len - nl

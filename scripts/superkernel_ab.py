@@ -7,15 +7,21 @@ At ``laplace2d`` 2048^2 (fp64, Jacobi, a late iteration of the cycle) it
 times the compile-time kernel at l = 2 and the runtime-depth kernel at
 l = 9 (``--depths``).  With ``--ell`` it adds the ELL kernels at the ice
 sheet (``icesheet3d.config()``, 500 000 rows, W = 11): the superkernel's
-ELL plug-in at l = 2 for one column and a slab of 8 (each column at its
-own cycle index), at l = 9 (the runtime-depth kernel), its halo plug-in
-on one shard of 4, and ``ell_spmv`` for one vector and a slab of 8.  Each
-is checked first (rows bitwise against the plain version; a slab's
-columns, partials included, bitwise against single-column launches),
-then timed by CUDA events and ``torch.profiler`` device time over 20
-calls, in turns (``chip_smoke.in_turns``), beside its bound (bytes over
-3.35 TB/s, ``fused_iter.min_bytes``: a slab's columns, the
-preconditioner and the operator data once; ``ell_spmv`` has none here).
+ELL plug-in at l = 2 for one column and slabs of 2, 4, 8 and 32 (each
+column at its own cycle index), at l = 9 (the runtime-depth kernel), the
+same plug-in on a quarter of the sheet (125 000 rows, a shard's row count,
+for one column and a slab of 8), its halo plug-in on shard 1 of 4 for one
+column (``ell_halo_l2``) and in the slab form at s = 1, 2, 4 and 8
+(``ell_halo_l2_s{s}``, as ``chip_smoke.halo_slab_checks`` builds it), and
+``ell_spmv`` for one vector and a slab of 8.  Each is checked first (rows
+bitwise against the plain version; a slab's columns, partials included,
+bitwise against single-column launches), then timed by CUDA events and
+``torch.profiler`` device time over 20 calls, in turns
+(``chip_smoke.in_turns``), beside its bound (bytes over 3.35 TB/s,
+``fused_iter.min_bytes``: a slab's columns, the preconditioner and the
+operator data once; ``ell_spmv`` has none here), and its device time split
+by kernel (the superkernel, its partials sum, ``ell_spmv``, the rest: a
+halo plug-in's ring-top copy and operand).
 With ``--solve`` it then runs ``chip_smoke.py``'s main solve
 (``laplace2d.config()``, p(2)-CG, Jacobi, fused, ``unroll=16``, tol
 1e-6) and reports its updates, restarts, vector phases, wall seconds, ms
@@ -37,11 +43,18 @@ power limit, then one JSON line.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import sys
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+ELL_SLABS = (1, 2, 4, 8, 32)   # the whole ice sheet's ELL slab widths
+HALO_SLABS = (1, 2, 4, 8)      # the ELL halo plug-in's, on one shard of 4
+QUARTER_SLABS = (1, 8)         # a quarter sheet's (a shard's row count)
+# the kernels whose device time a case is split into (the rest: "other")
+KERNEL_NAMES = ("fused_iter_kernel", "sum_partials", "ell_spmv")
+SPLIT_REPS = 20
 
 
 def main() -> int:
@@ -64,7 +77,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("needs an NVIDIA card", file=sys.stderr)
         return 1
-    from chip_smoke import PEAK_BYTES_PER_S, gpu_line, in_turns
+    from chip_smoke import PEAK_BYTES_PER_S, device_split, gpu_line, in_turns
     from repro_torch.kernels import fused_iter as fi, ops as kops, ref
     from repro_torch.linalg import JacobiPrec, Stencil2D5
 
@@ -97,6 +110,11 @@ def main() -> int:
     if args.ell:
         ell_cases(dev, gen, fns, rows_bitwise, nbytes)
     times = in_turns(fns)
+    for k, f in fns.items():
+        split = device_split(lambda f=f: [f() for _ in range(SPLIT_REPS)],
+                             KERNEL_NAMES)
+        times[k]["device_us_by_kernel"] = {
+            n: us / SPLIT_REPS for n, us in split["device_us"].items()}
     solve = main_solve(dev) if args.solve else None
     rung = ladder_rung(dev) if args.rung else None
     print(gpu_line())
@@ -125,8 +143,12 @@ def ell_cases(dev, gen, fns: dict, rows_bitwise: dict, nbytes: dict) -> None:
 
     op = build_operator(icesheet3d.config())
     prec = JacobiPrec.from_operator(op)
+    # the same sheet at a quarter of its nodes: a shard's row count on the
+    # single-device plug-in (no halo, no prepared operand)
+    quarter = build_operator(dataclasses.replace(icesheet3d.config(), nx=50,
+                                                 ny=50))
 
-    def phase(l, s):
+    def phase(l, s, n):
         layout = fi.SlabLayout(l=l, RB=l + 1)
         IS = fi.scal_layout(l)
         hosts = [fi.host_idx(layout, 2 * l + 3 + c) for c in range(s)]
@@ -136,13 +158,16 @@ def ell_cases(dev, gen, fns: dict, rows_bitwise: dict, nbytes: dict) -> None:
         scal[:, IS["eta_new_safe"]] = 0.75
         scal[:, IS["eta0_safe"]] = 1.5
         idx = torch.tensor(hosts, dtype=torch.int32, device=dev)
-        S = torch.randn(s, layout.nv, op.n, generator=gen,
+        S = torch.randn(s, layout.nv, n, generator=gen,
                         dtype=torch.float64, device=dev) * 1e-3
         return layout, S, idx, scal, hosts
 
-    for l, s in ((2, 1), (2, 8), (9, 1)):
-        layout, S, idx, scal, hosts = phase(l, s)
-        fiter = kops.fused_iteration_factory(op, prec)(layout)
+    cases = [("ell", op, 2, s) for s in ELL_SLABS] + [("ell", op, 9, 1)] + \
+        [("ell_quarter", quarter, 2, s) for s in QUARTER_SLABS]
+    for name, a_op, l, s in cases:
+        layout, S, idx, scal, hosts = phase(l, s, a_op.n)
+        fiter = kops.fused_iteration_factory(
+            a_op, JacobiPrec.from_operator(a_op))(layout)
         S_p, _ = fiter.plain(S, idx, scal)
         S_k, d_k = fiter(S.clone(), idx, scal)
         same = bool(torch.equal(S_k, S_p))
@@ -150,19 +175,21 @@ def ell_cases(dev, gen, fns: dict, rows_bitwise: dict, nbytes: dict) -> None:
             S_1, d_1 = fiter(S[c].clone(), idx[c], scal[c])
             same = same and bool(torch.equal(S_1, S_k[c])
                                  and torch.equal(d_1, d_k[c]))
-        key = f"ell_l{l}_s{s}"
+        key = f"{name}_l{l}_s{s}"
         rows_bitwise[key] = same
-        nbytes[key] = sum(fi.min_bytes(layout, h, op.n, has_prec=False,
+        nbytes[key] = sum(fi.min_bytes(layout, h, a_op.n, has_prec=False,
                                        has_diag=False) for h in hosts) \
-            + 8 * op.n + fiter.spmv.operand_bytes
+            + 8 * a_op.n + fiter.spmv.operand_bytes
         del S_p, S_k
         if s == 1:
             S, idx, scal = S[0], idx[0], scal[0]
         fns[key] = (lambda f=fiter, S=S, i=idx, c=scal: f(S, i, c))
+        del S, idx, scal
+        torch.cuda.empty_cache()
 
     # the halo plug-in on shard 1 of 4, fed the in-process halo
     plan = partition_spd(op, N_SHARDS)
-    layout, S, idx, scal, hosts = phase(2, 1)
+    layout, S, idx, scal, hosts = phase(2, 1, op.n)
     S, idx, scal = S[0], idx[0], scal[0]
     nl = op.n // N_SHARDS
     pos = fi.idx_layout(2)["z_top"]
@@ -182,6 +209,9 @@ def ell_cases(dev, gen, fns: dict, rows_bitwise: dict, nbytes: dict) -> None:
         layout, hosts[0], nl, has_prec=True, has_diag=False,
         operand_bytes=halo.spmv.operand_bytes)
     fns["ell_halo_l2"] = (lambda: halo(S_s, idx, scal))
+    for s in HALO_SLABS:
+        halo_slab_case(s, op, prec, plan, loc, gen, dev, fns, rows_bitwise,
+                       nbytes)
 
     for s in (1, 8):
         X = torch.randn(s, op.n, generator=gen, dtype=torch.float64,
@@ -193,6 +223,64 @@ def ell_cases(dev, gen, fns: dict, rows_bitwise: dict, nbytes: dict) -> None:
             ell_spmv.ell_spmv_plain(X, op.cols, op.vals)))
         fns[f"ell_spmv_s{s}"] = (
             lambda X=X: ell_spmv.ell_spmv(X, op.cols, op.vals))
+
+
+def halo_slab_case(s, op, prec, plan, loc, gen, dev, fns, rows_bitwise,
+                   nbytes) -> None:
+    """The ELL halo plug-in's slab form on shard 1 of N_SHARDS (key
+    ``ell_halo_l2_s{s}``), as ``chip_smoke.halo_slab_checks`` builds it:
+    l = 2, Jacobi, columns at cycle indices 2l + 3, 2l + 4, ... and the
+    last (of s > 1) at 1, every column's operand from the in-process halo
+    of the whole slab's ring-top rows.  Checked before timing: rows
+    bitwise against the plain version, each column's rows and partials
+    bitwise against its single-column launch.  Bound: ``min_bytes`` of
+    every column (its rows and halo), the inverse diagonal and the
+    shard's cols and vals once."""
+    import torch
+
+    from chip_smoke import N_SHARDS
+    from repro_torch.kernels import fused_iter as fi
+    from repro_torch.linalg.partition import halo_exchange
+    from repro_torch.parallel.distributed import fused_spmv_local
+
+    layout = fi.SlabLayout(l=2, RB=3)
+    IS = fi.scal_layout(2)
+    p, nl = N_SHARDS, op.n // N_SHARDS
+    hosts = [fi.host_idx(layout, 2 * layout.l + 3 + c)
+             for c in range(s - 1)] + \
+        [fi.host_idx(layout, 1 if s > 1 else 2 * layout.l + 3)]
+    idx = torch.tensor(hosts, dtype=torch.int32, device=dev)
+    scal = torch.randn(s, IS["size"], generator=gen, dtype=torch.float64,
+                       device=dev)
+    scal[:, IS["dlt_safe"]] = 1.25
+    scal[:, IS["eta_new_safe"]] = 0.75
+    scal[:, IS["eta0_safe"]] = 1.5
+    S = torch.randn(s, layout.nv, op.n, generator=gen, dtype=torch.float64,
+                    device=dev) * 1e-3
+    zt = fi.ring_top(S, idx, fi.idx_layout(2)["z_top"]).reshape(s, p, nl)
+    e_r = halo_exchange(zt, plan.send_up, plan.send_dn)[:, 1].contiguous()
+    inv = prec.inv_diag[nl:2 * nl].contiguous()
+    f = fi.build_fused_iteration(
+        layout, fused_spmv_local(op, loc, p, lambda z: e_r), inv)
+    S_r = S[..., nl:2 * nl].contiguous()
+    del S, zt
+    S_p, _ = f.plain(S_r.clone(), idx, scal)
+    S_k, d_k = f(S_r.clone(), idx, scal)
+    same = bool(torch.equal(S_k, S_p))
+    for c in range(s):
+        one = fi.build_fused_iteration(layout, fused_spmv_local(
+            op, loc, p, lambda z, e=e_r[c]: e), inv)
+        S_1, d_1 = one(S_r[c].clone(), idx[c], scal[c])
+        same = same and bool(torch.equal(S_1, S_k[c])
+                             and torch.equal(d_1, d_k[c]))
+    key = f"ell_halo_l2_s{s}"
+    rows_bitwise[key] = same
+    halo = f.spmv.ext_len - nl
+    nbytes[key] = sum(fi.min_bytes(layout, h, nl, has_prec=False,
+                                   has_diag=False, operand_bytes=8 * halo)
+                      for h in hosts) + 8 * nl + \
+        f.spmv.cols.numel() * 4 + f.spmv.vals.numel() * 8
+    fns[key] = (lambda: f(S_r, idx, scal))
 
 
 def main_solve(dev) -> dict:

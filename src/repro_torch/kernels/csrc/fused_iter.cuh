@@ -31,15 +31,15 @@
 //   and sums the slots in ell_rowsum's left-to-right order.  Its cols and
 //   vals are row-major (n, W), so a thread reading its own row's slots
 //   from device memory makes a warp's slot loads strided.  The staged ELL
-//   kernel (fused_iter_kernel_staged) copies each block's 256-row tile of
-//   cols and vals, two contiguous spans, into shared memory by two 1-D
-//   bulk copies on an mbarrier (bulk_copy.cuh; a ragged last tile or a
-//   misaligned base by coalesced ordinary loads into the same buffer), and
-//   the threads sum their rows from there, ELL_CHUNK gathers issued before
-//   their sums.  The ELL halo plug-in takes the same staged kernel, its
-//   gathers from the prepared operand.  A W too wide for ELL_TILE_BYTES
-//   (the wrapper's plan, kernels/fused_iter.py `ell_tile_plan`) keeps the
-//   direct reads, and so does the runtime-depth kernel.
+//   kernels copy each block's tile of cols and vals, two contiguous spans,
+//   into shared memory by two 1-D bulk copies on an mbarrier
+//   (bulk_copy.cuh; a ragged last tile or a misaligned base by coalesced
+//   ordinary loads into the same buffer), and the threads sum their rows
+//   from there, ELL_CHUNK gathers issued before their sums.  The ELL halo
+//   plug-in takes the same staged kernels, its gathers from the prepared
+//   operand.  A W too wide for ELL_TILE_BYTES (the wrapper's plan,
+//   kernels/fused_iter.py `ell_tile_plan`) keeps the direct reads, and so
+//   does the runtime-depth kernel.
 // * Store order and masks follow the plain version exactly: every mask is a
 //   select, and a masked-off row write (which in the plain version stores
 //   the row's original value back) is skipped only when no earlier write of
@@ -48,10 +48,11 @@
 //   update bitwise equal to the plain PyTorch version on the card.
 // * No atomics.  The compile-time kernels reduce each block's (2l+1)
 //   products in shared memory by a fixed pairwise tree over the 256
-//   threads.  The runtime-depth kernel sums each product across its warp
-//   as soon as it is formed (warp_sums8: a fixed butterfly over the 32
-//   lanes), then the block's 8 warp sums by the fixed tree
-//   ((w0 + w1) + (w2 + w3)) + ((w4 + w5) + (w6 + w7)).  A second launch
+//   threads.  The runtime-depth kernel and the staged ELL kernels sum
+//   each product across its warp (warp_sums8: a fixed butterfly over the
+//   32 lanes), then the warp sums by a fixed tree (warps_sum): a block's 8
+//   as ((w0 + w1) + (w2 + w3)) + ((w4 + w5) + (w6 + w7)), each 64-row
+//   group's 2 as w0 + w1.  A second launch
 //   sums the per-block partials in a fixed order (strided per thread, then
 //   a tree).  The result is deterministic run to run.  These orders differ
 //   from XLA's and from torch.sum's, and are the only reason the partials
@@ -102,8 +103,11 @@
 //   once and runs the vector phase of column 0, 1, ..., s - 1 in turn from
 //   that one copy, so the operator (66 MB at the ice sheet's 500 000 rows,
 //   more than the L2) comes from device memory once a launch and not once
-//   a column.  Each column's rows, block tree and partials sum are still
-//   the single-column launch's.
+//   a column.  For a shard's row count its blocks are of ELL_ROWS = 64
+//   rows (fused_iter_kernel_slab_ell); one column keeps BLOCK-row blocks
+//   (fused_iter_kernel_staged).  Both take a partial for each ELL_ROWS rows
+//   as a sum of warp sums (the runtime-depth kernel's butterfly), so each
+//   column's rows and partials are still the single-column launch's.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -124,11 +128,37 @@ constexpr int RT_CHUNK = 8;       // runtime depth: fill rows or products
 constexpr int RT_MIN_BLOCKS = 4;  // runtime depth: blocks an SM must hold
                                   // (caps the registers at 64 a thread)
 constexpr int ELL_CHUNK = 8;                // gathers issued before their sums
-constexpr int ELL_TILE_BYTES = 64 * 1024;   // most a staged tile may take
+constexpr int ELL_ROWS = 64;     // staged ELL kernel: rows (threads) a block
+constexpr int ELL_WARPS = ELL_ROWS / 32;
+constexpr int ELL_TILE_BYTES = 16 * 1024;   // most a staged tile may take
+                                            // (W <= 21 at ELL_ROWS rows)
+constexpr int SETUP_COLS = 8;   // staged ELL kernel: columns set up at once
 
 enum { SPMV_2D5 = 0, SPMV_3D7 = 1, SPMV_3D27 = 2, SPMV_DIAG = 3,
        SPMV_ELL = 4, SPMV_2D5_HALO = 5, SPMV_3D7_HALO = 6,
        SPMV_ELL_HALO = 7 };
+
+// Dynamic shared memory of the staged ELL kernels at depth l, w slots a
+// row and a slab of s columns.  One column (fused_iter_kernel_staged): the
+// (BLOCK, w) tile of vals and cols.  A slab (fused_iter_kernel_slab_ell):
+// the (ELL_ROWS, w) tile, then for min(s, SETUP_COLS) columns the (2l+1,
+// ELL_WARPS) warp sums, the scalar vector, the index vector and two store
+// masks.
+__host__ __device__ constexpr long long staged_smem_bytes(int l, int w,
+                                                          int s) {
+  return s == 1 ? (long long)BLOCK * w * 12
+                : (long long)ELL_ROWS * w * 12 +
+                      (long long)(s < SETUP_COLS ? s : SETUP_COLS) *
+                          ((2 * l + 1) * ELL_WARPS * 8 + (8 + l) * 8 +
+                           (8 * l + 9) * 4 + 2 * l * 4);
+}
+
+// Blocks an SM must hold of the slab ELL kernel at depth l <= 2: 9 (at
+// most 113 registers a thread), so that every operand row of a column is
+// in flight at once without spilling.
+__host__ __device__ constexpr int slab_min_blocks(int l) {
+  return l <= 2 ? 9 : 1;
+}
 
 // Plug-ins whose operand the wrapper prepares (a halo-extended vector).
 __host__ __device__ constexpr bool is_halo(int kind) {
@@ -273,17 +303,40 @@ __device__ __forceinline__ double spmv_at(const Spmv& sp, long long j,
   }
 }
 
-// The ring-top row of column blockIdx.y to that column's copy.
+// The ring-top row of column blockIdx.y to that column's copy, COPY_ILP
+// elements a thread loaded before any is stored.
+constexpr int COPY_ILP = 4;
 __global__ void copy_row(const double* __restrict__ S, long long n,
                          long long ld, long long cs,
                          const int* __restrict__ idx, int idx_size, int pos,
                          double* __restrict__ z) {
   S += blockIdx.y * cs;
   z += blockIdx.y * n;
-  const long long r = idx[(long long)blockIdx.y * idx_size + pos];
-  for (long long j = (long long)blockIdx.x * blockDim.x + threadIdx.x; j < n;
-       j += (long long)gridDim.x * blockDim.x)
-    z[j] = S[r * ld + j];
+  const double* src = S + idx[(long long)blockIdx.y * idx_size + pos] * ld;
+  for (long long j0 = (long long)blockIdx.x * blockDim.x * COPY_ILP +
+                      threadIdx.x;
+       j0 < n; j0 += (long long)gridDim.x * blockDim.x * COPY_ILP) {
+    double v[COPY_ILP];
+#pragma unroll
+    for (int u = 0; u < COPY_ILP; ++u) {
+      const long long j = j0 + (long long)u * blockDim.x;
+      v[u] = j < n ? src[j] : 0.0;
+    }
+#pragma unroll
+    for (int u = 0; u < COPY_ILP; ++u) {
+      const long long j = j0 + (long long)u * blockDim.x;
+      if (j < n) z[j] = v[u];
+    }
+  }
+}
+
+// copy_row for s columns on `stream`.
+inline void copy_rows(const double* S, long long n, long long ld, long long cs,
+                      int s, const int* idx, int idx_size, int pos, double* z,
+                      cudaStream_t stream) {
+  const long long want = (n + BLOCK * COPY_ILP - 1) / (BLOCK * COPY_ILP);
+  const dim3 grid((unsigned)(want < 65535 ? want : 65535), (unsigned)s);
+  copy_row<<<grid, BLOCK, 0, stream>>>(S, n, ld, cs, idx, idx_size, pos, z);
 }
 
 // Positions in the index vector and the scalar vector at depth L
@@ -330,11 +383,33 @@ __device__ __forceinline__ int store_mask(int L, const Ix& ix,
   return s;
 }
 
+// One column's two store masks (store_mask's tests) worked out by one
+// thread in its own loops (the compile-time kernels; the same masks through
+// store_mask made them ~3 % slower at l = 2).
+__device__ __forceinline__ void column_masks(int L, const Ix& ix,
+                                             const int* idx, int* store_fill,
+                                             int* store_rec) {
+  const bool late_ = idx[ix.F_LATE] != 0;
+  for (int k = 0; k < L; ++k) {
+    bool s = idx[ix.F_FILL + k] != 0;
+    for (int k2 = 0; k2 < k; ++k2)
+      s = s || idx[ix.FILL + k2] == idx[ix.FILL + k];
+    store_fill[k] = s;
+  }
+  for (int k = 0; k < L; ++k) {
+    bool s = late_;
+    for (int k2 = 0; k2 < L; ++k2)
+      s = s || idx[ix.FILL + k2] == idx[ix.REC_W + k];
+    for (int k2 = 0; k2 < k; ++k2)
+      s = s || idx[ix.REC_W + k2] == idx[ix.REC_W + k];
+    store_rec[k] = s;
+  }
+}
+
 // Every block loads the index and scalar vectors to shared memory and works
-// out the two store masks (store_mask's tests): thread 0 alone in its own
-// loops (the compile-time kernels; the same masks through store_mask made
-// them ~3 % slower at l = 2), or thread t mask t (SPREAD, the runtime-depth
-// kernel: at l = 54 one thread would take ~4 000 comparisons).
+// out the two store masks: thread 0 alone (column_masks), or thread t mask
+// t (SPREAD, the runtime-depth kernel: at l = 54 one thread would take
+// ~4 000 comparisons).
 template <bool SPREAD = false>
 __device__ __forceinline__ void block_setup(
     int L, const int* __restrict__ idx_g, const double* __restrict__ scal_g,
@@ -348,21 +423,7 @@ __device__ __forceinline__ void block_setup(
     for (int t = tid; t < 2 * L; t += BLOCK)
       (t < L ? store_fill[t] : store_rec[t - L]) = store_mask(L, ix, idx, t);
   } else if (tid == 0) {
-    const bool late_ = idx[ix.F_LATE] != 0;
-    for (int k = 0; k < L; ++k) {
-      bool s = idx[ix.F_FILL + k] != 0;
-      for (int k2 = 0; k2 < k; ++k2)
-        s = s || idx[ix.FILL + k2] == idx[ix.FILL + k];
-      store_fill[k] = s;
-    }
-    for (int k = 0; k < L; ++k) {
-      bool s = late_;
-      for (int k2 = 0; k2 < L; ++k2)
-        s = s || idx[ix.FILL + k2] == idx[ix.REC_W + k];
-      for (int k2 = 0; k2 < k; ++k2)
-        s = s || idx[ix.REC_W + k2] == idx[ix.REC_W + k];
-      store_rec[k] = s;
-    }
+    column_masks(L, ix, idx, store_fill, store_rec);
   }
   __syncthreads();
 }
@@ -373,27 +434,22 @@ struct K1 {
   double u_new, z_new, z_fill;
 };
 
-template <int KIND, bool STABLE, bool PREC, bool TILE>
-__device__ __forceinline__ K1 k1_values(
-    const double* S, long long ld, long long j, const Ix& ix,
-    const int* __restrict__ idx, const double* __restrict__ scal,
-    const Spmv& sp, const double* __restrict__ inv_diag) {
-  auto row = [&](int r) -> const double* { return S + (long long)r * ld; };
-  const bool late = idx[ix.F_LATE] != 0;
-  const double zt = row(idx[ix.Z_TOP])[j];
-  const double ui = row(idx[ix.U_I])[j];
-  const double uim1 = row(idx[ix.U_IM1])[j];
-  const double az = spmv_at<KIND, TILE>(sp, j, zt);
+// (K1) from its operands: the SPMV value az, the rows zt, ui, uim1 and
+// (ghysels) zl at column j, and (PREC) the inverse diagonal there.
+template <bool STABLE, bool PREC>
+__device__ __forceinline__ K1 k1_combine(double az, double zt, double ui,
+                                         double uim1, double zl, double dinv,
+                                         bool late,
+                                         const double* __restrict__ scal) {
   const double u_new0 = az - scal[SIG_I] * ui;
   const double u_new =
       late ? (u_new0 - scal[GAM_NEW] * ui - scal[D2] * uim1) / scal[DLT_SAFE]
            : u_new0;
   if constexpr (STABLE) {
-    const double z_new = PREC ? inv_diag[j] * u_new : u_new;
+    const double z_new = PREC ? dinv * u_new : u_new;
     return {u_new, z_new, z_new};
   } else {
-    const double z_new0 = PREC ? inv_diag[j] * u_new0 : u_new0;
-    const double zl = row(idx[ix.ZL_IM1])[j];
+    const double z_new0 = PREC ? dinv * u_new0 : u_new0;
     const double z_new = late ? (z_new0 - scal[GAM_NEW] * zt -
                                  scal[D2] * zl) / scal[DLT_SAFE]
                               : z_new0;
@@ -401,26 +457,48 @@ __device__ __forceinline__ K1 k1_values(
   }
 }
 
+template <int KIND, bool STABLE, bool PREC, bool TILE = false>
+__device__ __forceinline__ K1 k1_values(
+    const double* S, long long ld, long long j, const Ix& ix,
+    const int* __restrict__ idx, const double* __restrict__ scal,
+    const Spmv& sp, const double* __restrict__ inv_diag) {
+  auto row = [&](int r) -> const double* { return S + (long long)r * ld; };
+  const double zt = row(idx[ix.Z_TOP])[j];
+  const double ui = row(idx[ix.U_I])[j];
+  const double uim1 = row(idx[ix.U_IM1])[j];
+  const double az = spmv_at<KIND, TILE>(sp, j, zt);
+  const double dinv = PREC ? inv_diag[j] : 0.0;
+  const double zl = STABLE ? 0.0 : row(idx[ix.ZL_IM1])[j];
+  return k1_combine<STABLE, PREC>(az, zt, ui, uim1, zl, dinv,
+                                  idx[ix.F_LATE] != 0, scal);
+}
+
 // (K6) the values the x and p rows take at column j, read before any store.
 struct K6 {
   double x, p;
 };
 
-__device__ __forceinline__ K6 k6_values(const double* S, long long ld,
-                                        int u_off, long long j, const Ix& ix,
-                                        const int* __restrict__ idx,
-                                        const double* __restrict__ scal) {
-  const double x_old = S[(long long)(u_off + 4) * ld + j];
-  const double p_old = S[(long long)(u_off + 3) * ld + j];
-  const double p_first = S[j] / scal[ETA0_SAFE];
-  const double p_new =
-      (S[(long long)idx[ix.P_IM] * ld + j] - scal[D_PREV] * p_old) /
-      scal[ETA_NEW_SAFE];
+// (K6) from the old x and p, row 0 and row p_im at column j.
+__device__ __forceinline__ K6 k6_combine(double x_old, double p_old,
+                                         double s0, double p_im, const Ix& ix,
+                                         const int* __restrict__ idx,
+                                         const double* __restrict__ scal) {
+  const double p_first = s0 / scal[ETA0_SAFE];
+  const double p_new = (p_im - scal[D_PREV] * p_old) / scal[ETA_NEW_SAFE];
   const double x_new = x_old + scal[ZET_PREV] * p_old;
   const bool do_upd = idx[ix.F_UPD] != 0;
   const bool is_first = idx[ix.F_FIRST] != 0;
   return {do_upd ? x_new : x_old,
           is_first ? p_first : (do_upd ? p_new : p_old)};
+}
+
+__device__ __forceinline__ K6 k6_values(const double* S, long long ld,
+                                        int u_off, long long j, const Ix& ix,
+                                        const int* __restrict__ idx,
+                                        const double* __restrict__ scal) {
+  return k6_combine(S[(long long)(u_off + 4) * ld + j],
+                    S[(long long)(u_off + 3) * ld + j], S[j],
+                    S[(long long)idx[ix.P_IM] * ld + j], ix, idx, scal);
 }
 
 // The phase's last four stores, in the plain version's order.
@@ -455,9 +533,8 @@ __device__ __forceinline__ void vector_phase(
   const bool late = idx[ix.F_LATE] != 0;
 
   // ---- (K1) SPMV + pointwise preconditioner
-  const K1 h =
-      k1_values<KIND, STABLE, PREC, TILE>(S, ld, j, ix, idx, scal, sp,
-                                          inv_diag);
+  const K1 h = k1_values<KIND, STABLE, PREC, TILE>(S, ld, j, ix, idx, scal,
+                                                   sp, inv_diag);
 
   // ---- pipeline-fill copies (values; stored below)
 #pragma unroll
@@ -558,8 +635,7 @@ __device__ __forceinline__ void vector_phase_rt(
 
   // ---- (K1) and (K6): their loads in flight together
   const K1 h =
-      k1_values<KIND, STABLE, PREC, false>(S, ld, j, ix, idx, scal, sp,
-                                           inv_diag);
+      k1_values<KIND, STABLE, PREC>(S, ld, j, ix, idx, scal, sp, inv_diag);
   const K6 k6 = k6_values(S, ld, u_off, j, ix, idx, scal);
 
   // ---- pipeline-fill copies (values, for the stores)
@@ -705,23 +781,167 @@ __global__ void __launch_bounds__(BLOCK)
   block_partials<ND>(red, part);
 }
 
-// The compile-time kernel for the ELL plug-in with its operator staged:
-// block b stages rows [b BLOCK, b BLOCK + BLOCK) of cols and vals in
-// dynamic shared memory ((BLOCK, w) values, then (BLOCK, w) indices; both
-// spans 16-byte aligned), by bulk copy if b < bulk_tiles, else by ordinary
-// loads, and then runs the vector phase of each of the slab's s columns
-// in turn from that tile, each column's products through its own block
-// tree into its own partials.  It gathers from the column's ring-top row
-// in place: no row of the phase writes it (check_z_top_not_written in
-// kernels/fused_iter.py), so no copy is taken; the halo plug-in
-// (SPMV_ELL_HALO) gathers from the column's prepared operand, sp.z +
-// c * zs.  Between two columns no
-// barrier is needed:
-// the threads that read red[k BLOCK] for the partials do so before the
-// next column's block_setup barrier, and red is written after it.
+// The sum of a block's NW warp sums w[0 .. NW-1] of one product: a fixed
+// pairwise tree, ((w0 + w1) + (w2 + w3)) + ((w4 + w5) + (w6 + w7)) at 8.
+template <int NW>
+__device__ __forceinline__ double warps_sum(const double* w) {
+  static_assert(NW == 1 || NW == 2 || NW == 4 || NW == 8, "NW warps");
+  if constexpr (NW == 1) {
+    return w[0];
+  } else {
+    return warps_sum<NW / 2>(w) + warps_sum<NW / 2>(w + NW / 2);
+  }
+}
+
+// The warp's sums of its ND products (warp_sums8, 8 products at a time),
+// to ws[k * NW + warp] for product k, in a block of NW warps.
+template <int ND, int NW>
+__device__ __forceinline__ void warp_sums(const double (&prod)[ND],
+                                          double* ws) {
+  const int lane = threadIdx.x & 31;
+  const int q = (lane >> 4 & 1) * 4 + (lane >> 3 & 1) * 2 + (lane >> 2 & 1);
+#pragma unroll
+  for (int k0 = 0; k0 < ND; k0 += 8) {
+    double v[8];
+#pragma unroll
+    for (int u = 0; u < 8; ++u) v[u] = k0 + u < ND ? prod[k0 + u] : 0.0;
+    const double sum = warp_sums8(v);
+    if ((lane & 3) == 0 && k0 + q < ND)
+      ws[(k0 + q) * NW + (threadIdx.x >> 5)] = sum;
+  }
+}
+
+// The staged ELL kernel's setup of `cnt` columns (at most SETUP_COLS): their
+// index and scalar vectors to shared memory, then thread c works out column
+// c's two store masks (column_masks).  Two barriers for all cnt columns.
+__device__ __forceinline__ void stage_setup(int L, int cnt,
+                                            const int* __restrict__ idx_g,
+                                            const double* __restrict__ scal_g,
+                                            int* idx_s, double* scal_s,
+                                            int* mask_s) {
+  const Ix ix(L);
+  const int tid = threadIdx.x;
+  for (int t = tid; t < cnt * ix.IDX_SIZE; t += ELL_ROWS) idx_s[t] = idx_g[t];
+  for (int t = tid; t < cnt * (8 + L); t += ELL_ROWS) scal_s[t] = scal_g[t];
+  __syncthreads();
+  if (tid < cnt)
+    column_masks(L, ix, idx_s + tid * ix.IDX_SIZE, mask_s + tid * 2 * L,
+                 mask_s + tid * 2 * L + L);
+  __syncthreads();
+}
+
+// One column's vector phase in the slab ELL kernel at row j, the thread's
+// row of the block's tile (tv, tc): vector_phase's values and stores, with
+// every operand row loaded before any is used, then (the first column of a
+// bulk-copied tile) the tile awaited on tile_bar, then the row's gathers
+// from z: the rows are in flight together, during the tile's arrival and
+// the gathers (an operation on a load's value holds its warp until the
+// load arrives, so taking the recurrences as their rows arrive cost a third
+// more time).  The products come back in prod.
+template <bool STABLE, bool PREC, int L>
+__device__ __forceinline__ void vector_phase_staged(
+    double* S, long long ld, int rb, long long j, const int* __restrict__ idx,
+    const double* __restrict__ scal, const int* __restrict__ store_fill,
+    const int* __restrict__ store_rec, const double* tv, const int* tc,
+    int w, const double* __restrict__ z, const double* __restrict__ inv_diag,
+    uint64_t* tile_bar, double (&prod)[2 * L + 1]) {
+  const Ix ix(L);
+  const int u_off = (L + 1) * rb;
+  auto row = [&](int r) -> double* { return S + (long long)r * ld; };
+  const bool late = idx[ix.F_LATE] != 0;
+
+  // ---- every operand row of the phase
+  const double zt = row(idx[ix.Z_TOP])[j];
+  const double ui = row(idx[ix.U_I])[j];
+  const double uim1 = row(idx[ix.U_IM1])[j];
+  const double zl = STABLE ? 0.0 : row(idx[ix.ZL_IM1])[j];
+  const double dinv = PREC ? inv_diag[j] : 0.0;
+  double fill[L], ra[L], rb_[L], rc[L];
+#pragma unroll
+  for (int k = 0; k < L; ++k)
+    fill[k] = store_fill[k] && idx[ix.F_FILL + k] == 0
+                  ? row(idx[ix.FILL + k])[j]
+                  : 0.0;
+#pragma unroll
+  for (int k = 0; k < L; ++k) {
+    ra[k] = rb_[k] = rc[k] = 0.0;
+    if (late) {
+      ra[k] = row(idx[ix.REC_A + k])[j];
+      rb_[k] = row(idx[ix.REC_B + k])[j];
+      rc[k] = row(idx[ix.REC_C + k])[j];
+    } else if (k == 0 || store_rec[k]) {
+      ra[k] = row(idx[ix.REC_W + k])[j];
+    }
+  }
+#pragma unroll
+  for (int t = 0; t < L; ++t) prod[t] = row(idx[ix.MAT_V + t])[j];
+#pragma unroll
+  for (int t = 0; t < L - 1; ++t) prod[L + 1 + t] = row(idx[ix.MAT_Z + t])[j];
+  const double x_old = row(u_off + 4)[j], p_old = row(u_off + 3)[j];
+  // row 0 and row p_im only where (K6) takes them (the first update, and
+  // every update): a late phase reads neither more than its bound counts
+  const double s0 = idx[ix.F_FIRST] != 0 ? S[j] : 0.0;
+  const double p_im = idx[ix.F_UPD] != 0 ? row(idx[ix.P_IM])[j] : 0.0;
+
+  // ---- (K1) and (K6); the SPMV's slots from the tile
+  if (tile_bar != nullptr) bulk::mbar_wait(tile_bar, 0);
+  const int r = threadIdx.x * w;
+  const K1 h = k1_combine<STABLE, PREC>(ell_row_staged(tv + r, tc + r, w, z),
+                                        zt, ui, uim1, zl, dinv, late, scal);
+  const K6 k6 = k6_combine(x_old, p_old, s0, p_im, ix, idx, scal);
+
+  // ---- the fill and recurrence values, and the stores in vector_phase's
+  // order
+#pragma unroll
+  for (int k = 0; k < L; ++k)
+    if (store_fill[k]) {
+      if (idx[ix.F_FILL + k] != 0) fill[k] = h.z_fill;
+      row(idx[ix.FILL + k])[j] = fill[k];
+    }
+#pragma unroll
+  for (int k = 0; k < L; ++k) {
+    if (late)
+      ra[k] = (ra[k] + scal[C1 + k] * rb_[k] - scal[D2] * rc[k]) /
+              scal[DLT_SAFE];
+    if (store_rec[k]) row(idx[ix.REC_W + k])[j] = ra[k];
+  }
+  store_tail(S, ld, u_off, j, ix, idx, h, k6);
+  prod[L] = ra[0];
+  prod[2 * L] = h.z_new;
+#pragma unroll
+  for (int k = 0; k < 2 * L + 1; ++k) prod[k] = prod[k] * h.u_new;
+}
+
+// The compile-time kernel for the ELL plug-ins with the operator staged,
+// for a slab of s > 1 columns.  Block b stages rows [b ELL_ROWS, b ELL_ROWS
+// + ELL_ROWS) of cols and vals in dynamic shared memory ((ELL_ROWS, w)
+// values, then (ELL_ROWS, w) indices; both spans 16-byte aligned), by bulk
+// copy if b < bulk_tiles, else by ordinary loads, and runs the vector phase
+// of column 0, 1, ..., s - 1 in turn from that one copy, so the operator
+// comes from device memory once a launch.  A column gathers from its
+// ring-top row in place (no row of the phase writes it:
+// check_z_top_not_written in kernels/fused_iter.py), or the halo plug-in
+// (SPMV_ELL_HALO) from the column's prepared operand, sp.z + c * zs.
+//
+// Its design is for a shard's row count (125 000 at the ice sheet's 4
+// shards), where blocks of 256 rows and 64 registers a thread were all
+// resident in one wave, in step, with a dozen loads in flight a thread
+// (PERF.md, row 1hs):
+// * blocks of 64 rows (2 warps), 9 an SM at up to 113 registers, so a
+//   thread has every operand row of a column in flight
+//   (vector_phase_staged) and a shard's 1 954 blocks refill the SMs as
+//   they finish, out of step;
+// * stage_setup puts the index and scalar vectors and store masks of up to
+//   SETUP_COLS columns in shared memory at once, and no barrier separates
+//   those columns: each warp sums its products at once (warp_sums, the
+//   runtime-depth kernel's butterfly) into the chunk's (column, product,
+//   warp) sums, and after one barrier a chunk a block's partial is their
+//   sum (warps_sum: w0 + w1).
+// One column runs fused_iter_kernel_staged instead, with the same
+// partials; each column's rows and partials here are that launch's.
 template <int KIND, int L, bool STABLE, bool PREC>
-__global__ void __launch_bounds__(BLOCK)
-    fused_iter_kernel_staged(double* S, long long n, long long ld,
+__global__ void __launch_bounds__(ELL_ROWS, slab_min_blocks(L))
+    fused_iter_kernel_slab_ell(double* S, long long n, long long ld,
                              long long cs, int rb, int s,
                              const int* __restrict__ idx_g,
                              const double* __restrict__ scal_g, Spmv sp,
@@ -730,15 +950,95 @@ __global__ void __launch_bounds__(BLOCK)
                              double* __restrict__ part,
                              long long bulk_tiles) {
   constexpr int ND = 2 * L + 1;
+  const Ix ix(L);
+  __shared__ __align__(8) uint64_t bar;
+  extern __shared__ __align__(16) unsigned char tile[];
+  const int tid = threadIdx.x, w = sp.w;
+  const int sg = s < SETUP_COLS ? s : SETUP_COLS;
+  const long long r0 = (long long)blockIdx.x * ELL_ROWS;
+  const long long j = r0 + tid;
+  double* const tv = (double*)tile;
+  int* const tc = (int*)(tile + (size_t)ELL_ROWS * w * sizeof(double));
+  double* const ws = (double*)(tile + (size_t)ELL_ROWS * w * 12);
+  double* const scal_s = ws + sg * ND * ELL_WARPS;
+  int* const idx_s = (int*)(scal_s + sg * (8 + L));
+  int* const mask_s = idx_s + sg * ix.IDX_SIZE;
+  const bool by_copy = blockIdx.x < bulk_tiles;
+  if (by_copy) {
+    if (tid == 0) {
+      const uint32_t vbytes = (uint32_t)(ELL_ROWS * w * sizeof(double));
+      const uint32_t cbytes = (uint32_t)(ELL_ROWS * w * sizeof(int));
+      bulk::mbar_init(&bar, 1);
+      bulk::mbar_init_fence();
+      bulk::mbar_expect_tx(&bar, vbytes + cbytes);
+      bulk::copy(tv, sp.vals + r0 * w, vbytes, &bar);
+      bulk::copy(tc, sp.cols + r0 * w, cbytes, &bar);
+    }
+  } else {
+    const int ne = (int)((n - r0 < ELL_ROWS ? n - r0 : ELL_ROWS) * w);
+    const long long e0 = r0 * w;
+    for (int e = tid; e < ne; e += ELL_ROWS) {
+      tv[e] = sp.vals[e0 + e];
+      tc[e] = sp.cols[e0 + e];
+    }
+  }
+  for (int c0 = 0; c0 < s; c0 += SETUP_COLS) {
+    // (the first chunk's barriers also publish the mbarrier or the tile;
+    // a later chunk's follow the barrier before the last chunk's sums)
+    const int cnt = s - c0 < SETUP_COLS ? s - c0 : SETUP_COLS;
+    stage_setup(L, cnt, idx_g + (long long)c0 * ix.IDX_SIZE,
+                scal_g + (long long)c0 * (8 + L), idx_s, scal_s, mask_s);
+    for (int q = 0; q < cnt; ++q) {
+      const long long c = c0 + q;
+      const int* idx = idx_s + q * ix.IDX_SIZE;
+      const int* store_fill = mask_s + q * 2 * L;
+      const double* z = is_halo(KIND)
+                            ? sp.z + c * zs
+                            : S + c * cs + (long long)idx[ix.Z_TOP] * ld;
+      double prod[ND];
+      if (j < n) {
+        vector_phase_staged<STABLE, PREC, L>(
+            S + c * cs, ld, rb, j, idx, scal_s + q * (8 + L), store_fill,
+            store_fill + L, tv, tc, w, z, inv_diag,
+            c == 0 && by_copy ? &bar : nullptr, prod);
+      } else {
+#pragma unroll
+        for (int k = 0; k < ND; ++k) prod[k] = 0.0;
+      }
+      warp_sums<ND, ELL_WARPS>(prod, ws + q * ND * ELL_WARPS);
+    }
+    __syncthreads();
+    for (int t = tid; t < cnt * ND; t += ELL_ROWS)
+      part[((c0 + t / ND) * ND + t % ND) * (long long)gridDim.x +
+           blockIdx.x] = warps_sum<ELL_WARPS>(ws + t * ELL_WARPS);
+  }
+}
+
+// The one-column staged ELL kernel (a slab of s = 1): one block of BLOCK
+// threads a BLOCK-row tile, staged as the slab kernel stages its tiles, and
+// vector_phase on it; 64 registers a thread, so that a shard's rows are all
+// resident at once (a latency-bound launch: the slab kernel's 113
+// registers left a third of them for a second wave).  Its partials are the
+// slab kernel's: each ELL_ROWS-row group of warps sums its products by
+// warp_sums and warps_sum into that group's slot of the `groups` (=
+// ceil(n / ELL_ROWS)) partials, so a slab's column is bitwise this launch.
+template <int KIND, int L, bool STABLE, bool PREC>
+__global__ void __launch_bounds__(BLOCK)
+    fused_iter_kernel_staged(double* S, long long n, long long ld, int rb,
+                             const int* __restrict__ idx_g,
+                             const double* __restrict__ scal_g, Spmv sp,
+                             const double* __restrict__ inv_diag,
+                             double* __restrict__ part, long long bulk_tiles,
+                             int groups) {
+  constexpr int ND = 2 * L + 1, NG = NWARP / ELL_WARPS;
   __shared__ int idx[8 * L + 9];
   __shared__ double scal[8 + L];
   __shared__ int store_fill[L], store_rec[L];
-  __shared__ double red[ND * BLOCK];
+  __shared__ double ws[ND * NWARP];
   __shared__ __align__(8) uint64_t bar;
   extern __shared__ __align__(16) unsigned char tile[];
   const int tid = threadIdx.x, w = sp.w;
   const long long r0 = (long long)blockIdx.x * BLOCK;
-  const long long j = r0 + tid;
   double* const tv = (double*)tile;
   int* const tc = (int*)(tile + (size_t)BLOCK * w * sizeof(double));
   const bool by_copy = blockIdx.x < bulk_tiles;
@@ -760,29 +1060,29 @@ __global__ void __launch_bounds__(BLOCK)
       tc[e] = sp.cols[e0 + e];
     }
   }
-  __syncthreads();  // the barrier initialised, or the tile loaded
+  // (block_setup's barriers publish the mbarrier or the tile)
+  block_setup(L, idx_g, scal_g, idx, scal, store_fill, store_rec);
+  if (by_copy) bulk::mbar_wait(&bar, 0);
   Spmv spt = sp;
   spt.cols = tc;
   spt.vals = tv;
-  for (int c = 0; c < s; ++c) {
-    block_setup(L, idx_g + (long long)c * (8 * L + 9),
-                scal_g + (long long)c * (8 + L), idx, scal, store_fill,
-                store_rec);
-    if (c == 0 && by_copy) bulk::mbar_wait(&bar, 0);
-    spt.z = is_halo(KIND) ? sp.z + c * zs
-                          : S + c * cs + (long long)idx[Ix(L).Z_TOP] * ld;
-    RegVals<L> v;
-    if (j < n) {
-      vector_phase<KIND, STABLE, PREC, L, true>(
-          S + c * cs, ld, rb, idx, scal, store_fill, store_rec, spt,
-          inv_diag, v);
-    } else {
+  if constexpr (!is_halo(KIND)) spt.z = S + (long long)idx[Ix(L).Z_TOP] * ld;
+  RegVals<L> v;
+  if (r0 + tid < n) {
+    vector_phase<KIND, STABLE, PREC, L, true>(S, ld, rb, idx, scal,
+                                              store_fill, store_rec, spt,
+                                              inv_diag, v);
+  } else {
 #pragma unroll
-      for (int k = 0; k < ND; ++k) v.prod(k) = 0.0;
-    }
-#pragma unroll
-    for (int k = 0; k < ND; ++k) red[k * BLOCK + tid] = v.prod(k);
-    block_partials<ND>(red, part + (long long)c * ND * gridDim.x);
+    for (int k = 0; k < ND; ++k) v.prod(k) = 0.0;
+  }
+  warp_sums<ND, NWARP>(v.prod_, ws);
+  __syncthreads();
+  for (int t = tid; t < ND * NG; t += BLOCK) {
+    const long long g = (long long)blockIdx.x * NG + t % NG;
+    if (g < groups)
+      part[(t / NG) * (long long)groups + g] =
+          warps_sum<ELL_WARPS>(ws + t / NG * NWARP + t % NG * ELL_WARPS);
   }
 }
 
@@ -812,32 +1112,52 @@ __global__ void __launch_bounds__(BLOCK, RT_MIN_BLOCKS)
                                       store_rec, sp, inv_diag, fill_s, rec_s,
                                       red);
   __syncthreads();
-  for (int k = threadIdx.x; k < ND; k += BLOCK) {
-    const double* w = red + k * NWARP;
+  for (int k = threadIdx.x; k < ND; k += BLOCK)
     part[(long long)k * gridDim.x + blockIdx.x] =
-        ((w[0] + w[1]) + (w[2] + w[3])) + ((w[4] + w[5]) + (w[6] + w[7]));
-  }
+        warps_sum<NWARP>(red + k * NWARP);
 }
 
 // Row k of column blockIdx.y's (nd, nb) per-block partials summed in a
-// fixed order: thread t adds blocks t, t + BLOCK, ... in index order, then
-// a pairwise tree.
+// fixed order: thread t adds blocks t, t + BLOCK, ... in index order
+// (SUM_BATCH loaded at a time before they are added: whole batches, then
+// one masked), then a pairwise tree whose last five levels are warp 0's
+// shuffles (the same sums: red[t] + red[t + s] for t < s).
+constexpr int SUM_BATCH = 16;
 __global__ void __launch_bounds__(BLOCK)
     sum_partials(const double* __restrict__ part, int nb,
                  double* __restrict__ out) {
   __shared__ double red[BLOCK];
   const int k = blockIdx.x, tid = threadIdx.x;
-  part += (long long)blockIdx.y * gridDim.x * nb;
+  part += (long long)blockIdx.y * gridDim.x * nb + (long long)k * nb;
   out += (long long)blockIdx.y * gridDim.x;
-  double acc = 0.0;
-  for (int b = tid; b < nb; b += BLOCK) acc = acc + part[(long long)k * nb + b];
+  double acc = 0.0, v[SUM_BATCH];
+  int b0 = tid;
+  for (; b0 + (SUM_BATCH - 1) * BLOCK < nb; b0 += SUM_BATCH * BLOCK) {
+#pragma unroll
+    for (int u = 0; u < SUM_BATCH; ++u) v[u] = part[b0 + u * BLOCK];
+#pragma unroll
+    for (int u = 0; u < SUM_BATCH; ++u) acc = acc + v[u];
+  }
+  if (b0 < nb) {
+#pragma unroll
+    for (int u = 0; u < SUM_BATCH; ++u)
+      v[u] = b0 + u * BLOCK < nb ? part[b0 + u * BLOCK] : 0.0;
+#pragma unroll
+    for (int u = 0; u < SUM_BATCH; ++u)
+      if (b0 + u * BLOCK < nb) acc = acc + v[u];
+  }
   red[tid] = acc;
   __syncthreads();
-  for (int s = BLOCK / 2; s > 0; s >>= 1) {
+  for (int s = BLOCK / 2; s >= 32; s >>= 1) {
     if (tid < s) red[tid] = red[tid] + red[tid + s];
     __syncthreads();
   }
-  if (tid == 0) out[k] = red[0];
+  if (tid < 32) {
+    double v = red[tid];
+#pragma unroll
+    for (int s = 16; s > 0; s >>= 1) v = v + __shfl_down_sync(0xffffffffu, v, s);
+    if (tid == 0) out[k] = v;
+  }
 }
 
 struct Args {
@@ -869,10 +1189,8 @@ void set_operand(Args& a, int l) {
   if constexpr (is_halo(KIND)) {
     a.sp.z = a.zbuf;
   } else if constexpr (KIND != SPMV_DIAG) {
-    const long long want = (a.n + BLOCK - 1) / BLOCK;
-    const dim3 grid((unsigned)(want < 65535 ? want : 65535), (unsigned)a.s);
-    copy_row<<<grid, BLOCK, 0, a.stream>>>(a.S, a.n, a.ld, a.cs, a.idx,
-                                           8 * l + 9, 5 * l, a.zbuf);
+    copy_rows(a.S, a.n, a.ld, a.cs, a.s, a.idx, 8 * l + 9, 5 * l, a.zbuf,
+              a.stream);
     a.sp.z = a.zbuf;
     a.zs = a.n;
   }
@@ -890,34 +1208,51 @@ cudaError_t launch(Args a) {
   return cudaGetLastError();
 }
 
-// The staged ELL kernel: one block a row tile for all s columns, no copy
-// of the ring-top rows (zbuf: the halo plug-in's prepared operands, else
-// unused).  It opts in to its tile's dynamic
-// shared memory once per device.
+// The staged ELL kernels: a slab (s > 1) one block of ELL_ROWS threads an
+// ELL_ROWS-row tile (a.nblocks of them) for all s columns, in
+// staged_smem_bytes of dynamic shared memory (at most 22.4 KB: no opt-in);
+// one column the one-column kernel, whose BLOCK-row tile it opts in to
+// once per device.  No copy of the ring-top rows (zbuf: the halo plug-in's
+// prepared operands, else unused).
 template <int KIND, int L, bool STABLE, bool PREC>
 cudaError_t launch_staged(Args a) {
-  static int allowed[64] = {};
-  int dev = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e != cudaSuccess) return e;
-  if (dev >= 64 || a.tile_bytes != BLOCK * a.sp.w * 12 ||
+  if (a.tile_bytes != ELL_ROWS * a.sp.w * 12 ||
       a.tile_bytes > ELL_TILE_BYTES || a.bulk_tiles < 0 ||
-      a.bulk_tiles > a.n / BLOCK ||
+      a.bulk_tiles > a.n / ELL_ROWS ||
+      a.nblocks != (a.n + ELL_ROWS - 1) / ELL_ROWS ||
       (a.bulk_tiles > 0 && (((uintptr_t)a.sp.cols | (uintptr_t)a.sp.vals) %
                             bulk::ALIGN) != 0))
     return cudaErrorInvalidValue;
-  if (allowed[dev] < a.tile_bytes) {
-    e = cudaFuncSetAttribute(fused_iter_kernel_staged<KIND, L, STABLE, PREC>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             a.tile_bytes);
-    if (e != cudaSuccess) return e;
-    allowed[dev] = a.tile_bytes;
-  }
+  static_assert(staged_smem_bytes(LMAX, ELL_TILE_BYTES / (ELL_ROWS * 12),
+                                  SETUP_COLS) <= 48 * 1024,
+                "the slab ELL kernel needs no shared memory opt-in");
   if constexpr (is_halo(KIND)) a.sp.z = a.zbuf;
-  fused_iter_kernel_staged<KIND, L, STABLE, PREC>
-      <<<a.nblocks, BLOCK, (size_t)a.tile_bytes, a.stream>>>(
-          a.S, a.n, a.ld, a.cs, a.rb, a.s, a.idx, a.scal, a.sp, a.zs,
-          a.inv_diag, a.part, a.bulk_tiles);
+  if (a.s == 1) {
+    static long long allowed[64] = {};
+    int dev = 0;
+    cudaError_t e = cudaGetDevice(&dev);
+    if (e != cudaSuccess) return e;
+    if (dev >= 64) return cudaErrorInvalidValue;
+    const long long smem = staged_smem_bytes(L, a.sp.w, 1);
+    if (allowed[dev] < smem) {
+      e = cudaFuncSetAttribute(
+          fused_iter_kernel_staged<KIND, L, STABLE, PREC>,
+          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      if (e != cudaSuccess) return e;
+      allowed[dev] = smem;
+    }
+    // (bulk_tiles > 0: the bases are aligned, and so is every full tile)
+    fused_iter_kernel_staged<KIND, L, STABLE, PREC>
+        <<<(unsigned)((a.n + BLOCK - 1) / BLOCK), BLOCK, (size_t)smem,
+           a.stream>>>(a.S, a.n, a.ld, a.rb, a.idx, a.scal, a.sp,
+                       a.inv_diag, a.part,
+                       a.bulk_tiles > 0 ? a.n / BLOCK : 0, a.nblocks);
+  } else {
+    fused_iter_kernel_slab_ell<KIND, L, STABLE, PREC>
+        <<<a.nblocks, ELL_ROWS, (size_t)staged_smem_bytes(L, a.sp.w, a.s),
+           a.stream>>>(a.S, a.n, a.ld, a.cs, a.rb, a.s, a.idx, a.scal, a.sp,
+                       a.zs, a.inv_diag, a.part, a.bulk_tiles);
+  }
   sum_partials<<<dim3(2 * L + 1, a.s), BLOCK, 0, a.stream>>>(
       a.part, a.nblocks, a.partials);
   return cudaGetLastError();
@@ -1000,6 +1335,9 @@ cudaError_t dispatch(int l, bool stable, bool prec, const Args& a) {
 // row per column.  `tile_bytes` > 0 (the ELL plug-ins at l <= LMAX only)
 // launches the staged ELL kernel with that tile, its first `bulk_tiles`
 // tiles by bulk copy; the runtime-depth kernel ignores both.
+// NAME_ring_top copies each column's ring-top row (position `pos` of its
+// idx row, `idx_size` apart) to `out` (s, n) by copy_row: the halo
+// plug-ins' operand is prepared from it outside the kernel.
 // NAME_smem_optin writes the current device's largest dynamic shared memory
 // a block can opt in to, which bounds the runtime-depth kernel.
 #define FI_DEFINE_ENTRY(NAME, KIND)                                          \
@@ -1040,6 +1378,15 @@ cudaError_t dispatch(int l, bool stable, bool prec, const Args& a) {
     a.bulk_tiles = bulk_tiles;                                               \
     a.stream = (cudaStream_t)stream;                                         \
     return (int)fi::dispatch<KIND, 1>(l, stable != 0, prec != 0, a);         \
+  }                                                                          \
+  extern "C" int NAME##_ring_top(const void* S, long long n, long long ld,   \
+                                 int s, long long cs, const void* idx,       \
+                                 int idx_size, int pos, void* out,           \
+                                 void* stream) {                             \
+    if (s < 1 || s > 65535) return (int)cudaErrorInvalidValue;               \
+    fi::copy_rows((const double*)S, n, ld, cs, s, (const int*)idx, idx_size, \
+                  pos, (double*)out, (cudaStream_t)stream);                  \
+    return (int)cudaGetLastError();                                          \
   }                                                                          \
   extern "C" int NAME##_smem_optin(int* out) {                               \
     int dev = 0;                                                             \

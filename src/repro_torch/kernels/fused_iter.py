@@ -36,9 +36,12 @@ partition: ``prepare(z_top)`` builds the extended operand outside the
 kernel, and the plug-in's expression reads it).
 
 The ELL plug-ins (single-device and halo) at l <= ``LMAX`` run the staged
-ELL kernel when :func:`ell_tile_plan` stages them: one block a 256-row
-tile, its cols and vals copied to shared memory once and read there by
-every column of the slab in turn.
+ELL kernels when :func:`ell_tile_plan` stages them: a slab, one block an
+``ELL_ROWS``-row tile, its cols and vals copied to shared memory once and
+read there by every column in turn, with no barrier between columns; one
+column, a BLOCK-row tile a block, with the slab's partials (one for each
+``ELL_ROWS`` rows), so that a slab's column is bitwise its single-column
+launch (:func:`staged_smem_bytes`).
 """
 
 from __future__ import annotations
@@ -351,11 +354,18 @@ _ARGTYPES = [ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
              ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_double,
              ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
              ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p]
+_RING_TOP_ARGTYPES = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong,
+                      ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p,
+                      ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+                      ctypes.c_void_p]
 MAX_SLAB = 65535     # columns of one slab launch (the second grid dimension)
 BLOCK = 256          # threads per block, fixed in csrc/fused_iter.cuh
 NWARP = BLOCK // 32  # warps per block
 LMAX = 8             # deepest pipeline instantiated at compile time
-ELL_TILE_BYTES = 64 * 1024   # most shared memory a staged ELL tile takes
+ELL_ROWS = 64        # rows (threads) of a block of the staged ELL kernel
+ELL_WARPS = ELL_ROWS // 32
+ELL_TILE_BYTES = 16 * 1024   # most shared memory a staged ELL tile takes
+SETUP_COLS = 8       # columns the staged ELL kernel sets up at once
 BULK_ALIGN = 16      # the bulk copy's address and size unit
 
 
@@ -363,13 +373,16 @@ BULK_ALIGN = 16      # the bulk copy's address and size unit
 class EllTilePlan:
     """How the ELL plug-in's launch covers an (n, w) operator.
 
-    ``staged``: the staged ELL kernel, one block for each of the ``tiles``
-    BLOCK-row tiles, looping over the slab's columns; tiles
-    ``0 .. bulk_tiles - 1`` arrive by bulk copy, the rest (the ragged last
-    tile, every tile of a misaligned operator) by ordinary loads, into
-    ``tile_bytes`` of dynamic shared memory.  Otherwise the direct kernel:
-    a (tiles, s) grid, one block a tile of one column, reading the slots
-    from device memory."""
+    ``staged``: the staged ELL kernels.  A slab's takes one block for each
+    of the ``tiles`` ELL_ROWS-row tiles, looping over the slab's columns;
+    tiles ``0 .. bulk_tiles - 1`` arrive by bulk copy, the rest (the ragged
+    last tile, every tile of a misaligned operator) by ordinary loads, into
+    ``tile_bytes`` of its dynamic shared memory.  One column's takes BLOCK
+    rows a block (its bulk tiles the full ones when ``bulk_tiles`` > 0) and
+    writes the slab's ``tiles`` partials, one each ELL_ROWS rows
+    (:func:`staged_smem_bytes`).  Otherwise the direct kernel: a (tiles, s)
+    grid, one block a BLOCK-row tile of one column, reading the slots from
+    device memory.  Either way ``tiles`` is the partials a column."""
     staged: bool
     tiles: int
     bulk_tiles: int
@@ -381,16 +394,32 @@ def ell_tile_plan(n: int, w: int, cols_offset: int,
     """The ELL plug-in's launch plan for ``n`` rows of ``w`` slots (fp64
     values, int32 columns), from the operator alone.  ``cols_offset`` and
     ``vals_offset`` are the base addresses (only their residue mod 16
-    matters).  A tile of BLOCK rows takes BLOCK * w * 12 bytes; wider than
-    ``ELL_TILE_BYTES``, the direct kernel runs.  A full tile's spans
-    (BLOCK * w elements of 4 or 8 bytes) start and end on 16-byte
-    boundaries when both bases do.  A few integer operations: no cache."""
-    tiles = -(-n // BLOCK)
-    tile_bytes = BLOCK * w * (8 + 4)
+    matters).  A tile of ELL_ROWS rows takes ELL_ROWS * w * 12 bytes; wider
+    than ``ELL_TILE_BYTES`` (w > 21), the direct kernel runs.  A full
+    tile's spans (ELL_ROWS * w elements of 4 or 8 bytes) start and end on
+    16-byte boundaries when both bases do.  A few integer operations: no
+    cache."""
+    tile_bytes = ELL_ROWS * w * (8 + 4)
     if tile_bytes > ELL_TILE_BYTES:
-        return EllTilePlan(False, tiles, 0, 0)
+        return EllTilePlan(False, -(-n // BLOCK), 0, 0)
     aligned = cols_offset % BULK_ALIGN == 0 and vals_offset % BULK_ALIGN == 0
-    return EllTilePlan(True, tiles, n // BLOCK if aligned else 0, tile_bytes)
+    return EllTilePlan(True, -(-n // ELL_ROWS),
+                       n // ELL_ROWS if aligned else 0, tile_bytes)
+
+
+def staged_smem_bytes(l: int, w: int, s: int) -> int:
+    """Dynamic shared memory a block of the staged ELL kernels takes at
+    depth l, ``w`` slots a row, for a slab of ``s`` columns
+    (``staged_smem_bytes`` in csrc/fused_iter.cuh).  One column (the
+    one-column kernel, BLOCK-row blocks): the (BLOCK, w) tile of fp64 vals
+    and int32 cols.  A slab (``ELL_ROWS``-row blocks): the (ELL_ROWS, w)
+    tile, then for min(s, ``SETUP_COLS``) columns the (2l+1, ELL_WARPS)
+    warp sums, the scalar vector, the index vector and two store masks."""
+    if s == 1:
+        return BLOCK * w * 12
+    return ELL_ROWS * w * 12 + min(s, SETUP_COLS) * (
+        (2 * l + 1) * ELL_WARPS * 8 + (8 + l) * 8 + (8 * l + 9) * 4
+        + 2 * l * 4)
 
 
 def runtime_smem_bytes(l: int) -> int:
@@ -525,6 +554,7 @@ def build_fused_iteration(
             _check(d, "d", torch.float64, (n,), dev)
         cols, vals, w = spmv.cols, spmv.vals, 0
         tile_bytes, bulk_tiles = 0, 0
+        nb = (n + BLOCK - 1) // BLOCK
         if cols is not None:
             w = int(cols.shape[1])
             _check(cols, "cols", torch.int32, (n, w), dev)
@@ -533,13 +563,25 @@ def build_fused_iteration(
                 tp = ell_tile_plan(n, w, cols.data_ptr(), vals.data_ptr())
                 if tp.staged:
                     tile_bytes, bulk_tiles = tp.tile_bytes, tp.bulk_tiles
-        nb = (n + BLOCK - 1) // BLOCK
+                    nb = tp.tiles
         zs = n
+        ld = S.stride(-2)
+        cs = S.stride(0) if slab else nv * ld
+        lib = _build.load(name, {name: _ARGTYPES,
+                                 name + "_ring_top": _RING_TOP_ARGTYPES})
         if spmv.prepare is not None:
             # The halo plug-ins read the operand ``prepare`` builds from the
-            # ring-top row, of every column of a slab at once (selected on
-            # the device: no host sync); column c's at c * ext_len.
-            zbuf = spmv.prepare(ring_top(S, idx, IX["z_top"]))
+            # ring-top row, of every column of a slab at once (copied on the
+            # device by the library's ring-top entry, no host sync); column
+            # c's at c * ext_len.
+            zt = torch.empty(lead + (n,), dtype=S.dtype, device=dev)
+            with torch.cuda.device(dev):
+                _build.check(getattr(lib, name + "_ring_top")(
+                    S.data_ptr(), n, ld, s, cs, idx.data_ptr(), IX["size"],
+                    IX["z_top"], zt.data_ptr(),
+                    torch.cuda.current_stream(dev).cuda_stream),
+                    name + "_ring_top")
+            zbuf = spmv.prepare(zt)
             _check(zbuf, "prepared operand", torch.float64,
                    lead + (spmv.ext_len,), dev)
             zs = spmv.ext_len
@@ -549,22 +591,19 @@ def build_fused_iteration(
             zbuf = torch.empty(lead + (n,), dtype=S.dtype, device=dev)
         part = torch.empty(lead + (nd, nb), dtype=S.dtype, device=dev)
         partials = torch.empty(lead + (nd,), dtype=S.dtype, device=dev)
-        fn = getattr(_build.load(name, {name: _ARGTYPES}), name)
         nx, ny, nz = spmv.dims
-        ld = S.stride(-2)
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream(dev).cuda_stream
-            rc = fn(l, int(layout.recurrence == "stable"),
-                    int(inv is not None), S.data_ptr(), n, ld, s,
-                    S.stride(0) if slab else nv * ld, layout.RB,
-                    idx.data_ptr(), scal.data_ptr(),
-                    None if zbuf is None else zbuf.data_ptr(), zs,
-                    None if inv is None else inv.data_ptr(),
-                    part.data_ptr(), nb, partials.data_ptr(), nx, ny, nz,
-                    spmv.coef, None if d is None else d.data_ptr(),
-                    None if cols is None else cols.data_ptr(),
-                    None if vals is None else vals.data_ptr(), w,
-                    tile_bytes, bulk_tiles, stream)
+            rc = getattr(lib, name)(
+                l, int(layout.recurrence == "stable"), int(inv is not None),
+                S.data_ptr(), n, ld, s, cs, layout.RB, idx.data_ptr(),
+                scal.data_ptr(), None if zbuf is None else zbuf.data_ptr(),
+                zs, None if inv is None else inv.data_ptr(), part.data_ptr(),
+                nb, partials.data_ptr(), nx, ny, nz, spmv.coef,
+                None if d is None else d.data_ptr(),
+                None if cols is None else cols.data_ptr(),
+                None if vals is None else vals.data_ptr(), w, tile_bytes,
+                bulk_tiles, stream)
         _build.LAUNCHES[launch_key(spmv.kind, l, slab)] += 1
         _build.check(rc, name)
         return S, partials

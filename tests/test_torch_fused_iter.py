@@ -445,6 +445,70 @@ def test_halo_plugins_and_deep_pipelines_bitwise_on_card(cuda_device):
         tfactory(op)(layout)(S, idx, scal)
 
 
+@pytest.mark.cuda
+def test_ell_halo_slab_bitwise_on_card(cuda_device):
+    """On the card: the ELL halo plug-in's slab form (the staged kernel, one
+    block a tile running every column) at s in {1, 3, 8}, l = 2, Jacobi, on
+    each of 4 shards of a 4 000-node ice sheet (1 000 rows a shard: three
+    bulk-copied tiles and a ragged last one), the columns at cycle indices
+    7, 8, ... and the last (of s > 1) at 1, each column's operand from the
+    in-process halo of the slab's ring-top rows.  Rows bitwise against the
+    plain version; each column's rows and partials bitwise against its
+    single-column launch; partials within 1e-13 sum |m u| of the plain
+    products; one slab launch counted."""
+    from repro_torch.configs import icesheet3d
+    from repro_torch.configs.problems import build_operator
+    from repro_torch.kernels import _build
+    from repro_torch.linalg import JacobiPrec
+    from repro_torch.linalg import partition as tpart
+    from repro_torch.parallel.distributed import fused_spmv_local
+
+    op = build_operator(dataclasses.replace(icesheet3d.smoke_config(), nx=25,
+                                            ny=20, nz=8), device=cuda_device)
+    p, nl = N_SHARDS, op.n // N_SHARDS
+    assert nl == 1000
+    plan = tpart.partition_spd(op, p)
+    inv = JacobiPrec.from_operator(op).inv_diag
+    layout = tfi.SlabLayout(l=2, RB=3)
+    for s in (1, 3, 8):
+        cycle = [7 + c for c in range(s - 1)] + [1 if s > 1 else 7]
+        S, idx, scal = (torch.tensor(np.stack(a), device=cuda_device)
+                        for a in zip(*[_triple(layout, op.n, i, seed=s + i)
+                                       for i in cycle]))
+        zt = tfi.ring_top(S, idx, tfi.idx_layout(2)["z_top"])
+        ext = tpart.halo_exchange(zt.reshape(s, p, nl), plan.send_up,
+                                  plan.send_dn)
+        for r in range(p):
+            loc = {f: getattr(plan, f)[r]
+                   for f in ("cols", "vals", "send_up", "send_dn")}
+            e_r = ext[:, r].contiguous()
+            inv_r = inv[r * nl:(r + 1) * nl].contiguous()
+
+            def fiter(e):
+                return tfi.build_fused_iteration(
+                    layout, fused_spmv_local(op, loc, p, lambda z: e), inv_r)
+
+            f = fiter(e_r)
+            S_r = S[..., r * nl:(r + 1) * nl].contiguous()
+            S_p, _ = f.plain(S_r, idx, scal)
+            _build.reset_launches()
+            S_k, d_k = f(S_r.clone(), idx, scal)
+            torch.cuda.synchronize()
+            assert _build.LAUNCHES[tfi.launch_key("ell_halo", 2, True)] == 1
+            assert torch.equal(S_k, S_p), (s, r)
+            for c in range(s):
+                S_1, d_1 = fiter(e_r[c])(S_r[c].clone(), idx[c], scal[c])
+                assert torch.equal(S_1, S_k[c]), (s, r, c)
+                assert torch.equal(d_1, d_k[c]), (s, r, c)
+                _, mat, u = tref.fused_iter_unfused(
+                    S_r[c], idx[c], scal[c],
+                    lambda z, e=e_r[c]: f.spmv.ext_expr(e),
+                    lambda v: inv_r * v, layout)
+                d_p = (mat * u[None, :]).sum(dim=1)
+                scale = (mat.abs() * u.abs()[None, :]).sum(dim=1)
+                assert ((d_k[c] - d_p).abs() <= RTOL * scale).all(), (s, r, c)
+
+
 def _rows_and_partials(fiter, apply_a, prec, layout, S, idx, scal):
     """One launch of ``fiter`` on the card against its plain version:
     (rows bitwise, max |partial - plain| / sum |m u|); S is (NV, n) or a

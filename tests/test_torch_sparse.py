@@ -326,13 +326,19 @@ def test_ell_kernels_bitwise_on_card(cuda_device):
 BLOCK_SMEM_OPTIN = 232448   # shared memory a block may opt in to (H100)
 
 
-def _staged_smem_bytes(tile_bytes, l, block):
-    """Shared memory a block of the staged ELL kernel takes at depth l
-    (``fused_iter_kernel_staged`` in csrc/fused_iter.cuh): the tile, then
-    its static arrays (the 2l+1 products of each thread, the index and
-    scalar vectors, the store masks, the barrier)."""
-    return tile_bytes + (2 * l + 1) * block * 8 + (8 * l + 9) * 4 + \
-        (8 + l) * 8 + 2 * l * 4 + 8
+def _staged_smem_bytes(tile_bytes, l, s):
+    """Shared memory a block of the staged ELL kernels takes at depth l for
+    a slab of s columns (csrc/fused_iter.cuh), ``tile_bytes`` the plan's
+    64-row tile.  One column (``fused_iter_kernel_staged``, 256 rows a
+    block): the 256-row tile, then its static arrays (the index and scalar
+    vectors, the store masks, the 8 warps' sums of the 2l+1 products, the
+    barrier).  A slab (``fused_iter_kernel_slab_ell``): the tile, then for
+    up to 8 columns the sums of its 2 warps, the scalar and index vectors
+    and the store masks, and the barrier (static)."""
+    setup = (8 + l) * 8 + (8 * l + 9) * 4 + 2 * l * 4
+    if s == 1:
+        return 4 * tile_bytes + setup + (2 * l + 1) * 8 * 8 + 8
+    return tile_bytes + min(s, 8) * ((2 * l + 1) * 2 * 8 + setup) + 8
 
 
 @pytest.mark.parametrize("s", [1, 2, 3, 8, 9])
@@ -340,8 +346,9 @@ def _staged_smem_bytes(tile_bytes, l, block):
                                  (1000, 12), (777, 21), (300, 22)])
 def test_ell_tile_plan_covers_every_row_and_column_once(n, w, s):
     """The superkernel ELL plug-in's launch plan, walked in its kernel's
-    order for aligned and misaligned bases: staged, one block a BLOCK-row
-    tile runs every column of the slab; direct, a (tiles, s) grid.  Every
+    order for aligned and misaligned bases: staged, one block an
+    ELL_ROWS-row tile runs every column of the slab; direct, a (tiles, s)
+    grid of BLOCK-row tiles.  Every
     (row, column) is covered once, each column's blocks are the s = 1
     launch's partition (so its partials come from the same blocks), a
     bulk-copied tile is full with 16-byte-aligned spans, a misaligned base
@@ -349,11 +356,13 @@ def test_ell_tile_plan_covers_every_row_and_column_once(n, w, s):
     stays within the budget at every compile-time depth."""
     from repro_torch.kernels import fused_iter as tfi
 
-    B = tfi.BLOCK
+    staged = tfi.ELL_ROWS * w * 12 <= tfi.ELL_TILE_BYTES
+    assert staged == (w <= 21)
+    B = tfi.ELL_ROWS if staged else tfi.BLOCK
     single = [(r0, min(B, n - r0)) for r0 in range(0, n, B)]
     for offsets in ((0, 0), (4, 8), (0, 8), (12, 0)):
         p = tfi.ell_tile_plan(n, w, *offsets)
-        assert p.staged == (B * w * 12 <= tfi.ELL_TILE_BYTES)
+        assert p.staged == staged
         assert p.tiles == len(single)
         seen = np.zeros((s, n), np.int64)
         blocks_of = [[] for _ in range(s)]
@@ -376,10 +385,47 @@ def test_ell_tile_plan_covers_every_row_and_column_once(n, w, s):
             assert p.tile_bytes == B * w * 12 <= tfi.ELL_TILE_BYTES
             assert p.bulk_tiles == (n // B if aligned else 0)
             for l in range(1, tfi.LMAX + 1):
-                assert _staged_smem_bytes(p.tile_bytes, l, B) \
-                    <= BLOCK_SMEM_OPTIN
+                smem = _staged_smem_bytes(p.tile_bytes, l, s)
+                assert B == tfi.ELL_ROWS
+                static = (8 + l) * 8 + (8 * l + 9) * 4 + 2 * l * 4 + \
+                    (2 * l + 1) * 8 * 8 + 8 if s == 1 else 8
+                assert smem == tfi.staged_smem_bytes(l, w, s) + static
+                assert smem <= BLOCK_SMEM_OPTIN
         else:
             assert p.bulk_tiles == 0 and p.tile_bytes == 0
+
+
+SM_SMEM, BLOCK_RESERVED = 233472, 1024   # an H100 SM's shared memory, and
+                                         # what the card keeps of it a block
+
+
+@pytest.mark.parametrize("n,tiles,bulk", [(500_000, 7813, 7812),
+                                          (125_000, 1954, 1953)])
+def test_ell_tile_plan_at_the_ice_sheet_and_a_shard(n, tiles, bulk):
+    """The staged ELL plan at ``icesheet3d``'s row counts (W = 11, aligned
+    bases): the whole sheet and one shard of 4.  Its tiles (a column's
+    partials), bulk-copied tiles and tile bytes, and a block's shared
+    memory.  One column: a 256-row tile, so 4 blocks of 256 threads (64
+    registers) fit an SM and a shard's rows are all resident at once.  A
+    slab (8 columns' setup and warp sums at most): the 9 blocks of 64
+    threads an SM that its registers allow fit its shared memory too, and
+    a shard's tiles are more than 1.5 times those places."""
+    from repro_torch.kernels import fused_iter as tfi
+
+    p = tfi.ell_tile_plan(n, 11, 0, 0)
+    assert (p.staged, p.tiles, p.bulk_tiles, p.tile_bytes) == \
+        (True, tiles, bulk, 64 * 11 * 12)
+    assert tfi.staged_smem_bytes(2, 11, 1) == 256 * 11 * 12 == 33792
+    column = 5 * 2 * 8 + (8 + 2) * 8 + (8 * 2 + 9) * 4 + 2 * 2 * 4
+    assert tfi.staged_smem_bytes(2, 11, 8) == 8448 + 8 * column == 10656
+    assert tfi.staged_smem_bytes(2, 11, 32) == tfi.staged_smem_bytes(2, 11, 8)
+    one = _staged_smem_bytes(p.tile_bytes, 2, 1)
+    assert 4 * (one + BLOCK_RESERVED) <= SM_SMEM
+    assert (4 * 256 * 132 >= n) == (n == 125_000)
+    for s in (8, 32):
+        smem = _staged_smem_bytes(p.tile_bytes, 2, s)
+        assert 9 * (smem + BLOCK_RESERVED) <= SM_SMEM
+    assert p.tiles >= 1.5 * 9 * 132
 
 
 @pytest.mark.parametrize("s", [1, 2, 3, 8, 9, 32])
