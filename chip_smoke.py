@@ -180,6 +180,21 @@ Phases, each printed as one JSON line; every phase raises on failure:
    uninterrupted 4-shard oracle on every rank; that run's last snapshot
    restored by ``LocalBackend(reduction="staged", virtual_shards=4)``.
 
+23. LM serving through ``repro_torch.models.LM`` (``lm_serve_phase``):
+   qwen3-1.7b at its published config, full width and depth (28 layers,
+   fp32, random weights from a seed), 4 requests of 512 prompt tokens and
+   64 new tokens each (prefill, then 63 greedy decode steps, every step's
+   attention a launch of the decode kernel: 1 764), with no host sync in
+   a step (``set_sync_debug_mode("error")``); the plain path
+   teacher-forced on the same tokens within LM_KERNEL_TOL, one forward
+   over prompt and generated tokens against the prefill's and every
+   step's logits within LM_FORWARD_TOL, all logits finite; prefill ms,
+   decode ms a step (CUDA events), a profiled split of 4 steps, the
+   decode kernel's device time at the model's shape, peak memory.  Then
+   the other nine LM configs at their published widths with their depth
+   cut (LM_CUTS): B = 2, 64 prompt tokens (16 encoder frames), 8 decode
+   steps, the same checks (MoE's forward check on a drop-free capacity).
+
 Every kernel row of phases 8 and 9 carries its device time (profiler)
 beside its event time.
 
@@ -3744,6 +3759,293 @@ def ranks_recovery_phase(dev, gpu, lap, op, prec, b, solve_kw) -> dict:
     return launches
 
 
+# LM serving (phase 23).  (a) qwen3-1.7b at its published config, full
+# width and depth (28 layers, fp32: 2.03 G parameters): 4 requests of 512
+# random prompt tokens, 64 new tokens each (one from prefill, 63 decode
+# steps), so 28 x 63 = 1 764 launches of the decode kernel.  (b) The other
+# nine LM configs at their published widths, depth cut for the card's
+# memory and the time limit (PERF.md section 4): B = 2, a prompt of 64
+# tokens (encdec: 16 encoder frames), 8 decode steps.
+LM_MAIN = "qwen3-1.7b"
+LM_BATCH, LM_PROMPT, LM_NEW = 4, 512, 64
+LM_OTHER_BATCH, LM_OTHER_PROMPT, LM_OTHER_STEPS, LM_ENC_FRAMES = 2, 64, 8, 16
+LM_CUTS = (("smollm-135m", {}),
+           ("stablelm-12b", {"n_layers": 2}),
+           ("qwen2-vl-7b", {"n_layers": 2}),
+           ("deepseek-moe-16b", {"n_layers": 2}),
+           ("rwkv6-7b", {"n_layers": 2}),
+           ("command-r-plus-104b", {"n_layers": 2}),
+           ("seamless-m4t-large-v2", {"n_layers": 2, "n_enc_layers": 2}),
+           ("zamba2-2.7b", {"n_layers": 6}),
+           ("arctic-480b", {"n_layers": 1}))
+LM_SEED = 23
+# Kernel path against the plain path, teacher-forced on the kernel's
+# tokens: the same fp32 model but decode attention's sums in the kernel's
+# split order; rtol = atol = 2e-4, the decode kernel's own bound against
+# its plain version (phase 9), which the logits share.
+LM_KERNEL_TOL = 2e-4
+# Prefill and each decode step against one forward over prompt and
+# generated tokens: another blocking of the prompt's attention and fp32
+# GEMMs of other shapes over up to 28 layers; the JAX test's decode bound.
+LM_FORWARD_TOL = 2e-3
+
+
+def _lm_clone(cache):
+    return {k: ({kk: vv.clone() for kk, vv in v.items()}
+                if isinstance(v, dict) else v.clone())
+            for k, v in cache.items()}
+
+
+def _lm_close(got, want, tol) -> tuple[float, bool]:
+    """(max |got - want|, allclose at rtol = atol = tol)."""
+    import torch
+
+    return (float((got - want).abs().max()),
+            bool(torch.allclose(got, want, rtol=tol, atol=tol)))
+
+
+def lm_serve_run(model, batch, prompt_len: int, steps: int, max_seq: int,
+                 forward: bool = True) -> dict:
+    """Prefill ``batch``, then ``steps`` greedy decode steps through the
+    decode kernel (the token fed back as a device tensor, under
+    ``set_sync_debug_mode("error")``: a host sync raises), each step timed
+    by CUDA events; the same steps teacher-forced through the plain path
+    from a copy of the prefill cache; with ``forward``, one forward over
+    the prompt and the fed-back tokens against the prefill's and each
+    step's logits.  Returns the record (its ``checks`` and the final
+    kernel-path cache under ``cache``)."""
+    import torch
+
+    from repro_torch.kernels import _build
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, cache = model.prefill(batch, max_seq)
+    torch.cuda.synchronize()
+    rec = {"prefill_ms": 1e3 * (time.perf_counter() - t0)}
+    first = logits[:, -1]
+    plain = _lm_clone(cache)
+    toks = [first.argmax(-1, keepdim=True)]
+    k_logits = []
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(steps + 1)]
+    before = _build.LAUNCHES["decode_attention"]
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        t0 = time.perf_counter()
+        ev[0].record()
+        for i in range(steps):
+            logits, cache = model.decode_step(toks[-1], cache)
+            ev[i + 1].record()
+            k_logits.append(logits[:, -1])
+            toks.append(logits[:, -1].argmax(-1, keepdim=True))
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    step_ms = sorted(ev[i].elapsed_time(ev[i + 1]) for i in range(steps))
+    rec.update({"decode_steps": steps,
+                "decode_ms_median": step_ms[steps // 2],
+                "decode_ms_min": step_ms[0], "decode_ms_max": step_ms[-1],
+                "decode_wall_ms_per_step": 1e3 * wall / steps,
+                "host_syncs_in_decode": 0,
+                "launches": _build.LAUNCHES["decode_attention"] - before})
+    checks = {"finite": bool(torch.isfinite(first).all()) and all(
+        bool(torch.isfinite(x).all()) for x in k_logits)}
+    err = 0.0
+    ok = True
+    for i in range(steps):
+        lp, plain = model.decode_step(toks[i], plain, plain=True)
+        e, c = _lm_close(k_logits[i], lp[:, -1], LM_KERNEL_TOL)
+        err, ok = max(err, e), ok and c
+    rec["kernel_vs_plain_max_abs"] = err
+    checks["kernel_vs_plain"] = ok
+    del plain
+    if forward:
+        full = dict(batch, tokens=torch.cat([batch["tokens"]] + toks[:steps],
+                                            dim=1))
+        fl, _ = model.forward(full)
+        e0, c0 = _lm_close(first, fl[:, prompt_len - 1], LM_FORWARD_TOL)
+        err, ok = e0, c0
+        for i in range(steps):
+            e, c = _lm_close(k_logits[i], fl[:, prompt_len + i],
+                             LM_FORWARD_TOL)
+            err, ok = max(err, e), ok and c
+        rec["decode_vs_forward_max_abs"] = err
+        rec["logits_max_abs"] = float(fl.abs().max())
+        checks["decode_vs_forward"] = ok
+        del fl
+    rec["checks"] = checks
+    rec["cache"] = cache
+    return rec
+
+
+def lm_serve_phase(dev, gpu) -> dict:
+    """Phase 23: the LM side path's serving half through
+    ``repro_torch.models.LM`` (``prefill`` then ``decode_step``), every
+    decode step's self-attention (and zamba2's shared block, seamless's
+    cross-attention) a launch of the hand-written decode kernel.  Returns
+    {"launches": decode kernel launches on the model path, "model_shape":
+    the kernel's device time at qwen3's decode shape}."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import ops as kops
+    from repro_torch.models import LM
+    from repro_torch.models.attention import decode_attention_torch
+
+    t_phase = time.perf_counter()
+    out = {"phase": "lm_serve", "gpu": gpu}
+    checks: dict = {}
+    launches = 0
+
+    def make_batch(cfg, gen, b, t):
+        batch = {"tokens": torch.randint(0, cfg.vocab, (b, t), generator=gen,
+                                         device=dev)}
+        if cfg.family == "vlm":
+            batch["patch_embeds"] = torch.randn(
+                b, cfg.n_patches, cfg.d_model, generator=gen, device=dev)
+        if cfg.family == "encdec":
+            batch["enc_embeds"] = torch.randn(
+                b, LM_ENC_FRAMES, cfg.d_model, generator=gen, device=dev)
+        return batch
+
+    def weight_bytes(model):
+        """Bytes of the weights a decode step reads: every parameter but
+        the embedding table (of which it reads B rows)."""
+        return sum(p.numel() * p.element_size()
+                   for n, p in model.named_parameters()
+                   if not n.startswith("embed"))
+
+    # ---- (a) qwen3-1.7b, published config, full width and depth ---------
+    cfg = get_config(LM_MAIN)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device=dev).manual_seed(LM_SEED)
+    t0 = time.perf_counter()
+    model = LM(cfg, device=dev)
+    model.init(gen)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    batch = make_batch(cfg, gen, LM_BATCH, LM_PROMPT)
+    max_seq = LM_PROMPT + LM_NEW
+    model.prefill(batch, max_seq)                 # warm-up (GEMM choices)
+    rec = lm_serve_run(model, batch, LM_PROMPT, LM_NEW - 1, max_seq)
+    cache = rec.pop("cache")
+    launches += rec["launches"]
+    checks.update({f"{LM_MAIN}_{k}": v for k, v in rec.pop("checks").items()})
+    checks[f"{LM_MAIN}_launches"] = \
+        rec["launches"] == cfg.n_layers * (LM_NEW - 1)
+    wb = weight_bytes(model)
+    kv_bytes = 2 * LM_BATCH * max_seq * cfg.n_kv * cfg.hd * 4
+    rec.update({
+        "params": sum(p.numel() for p in model.parameters()),
+        "init_s": init_s, "batch": LM_BATCH, "prompt": LM_PROMPT,
+        "new_tokens": LM_NEW, "max_seq": max_seq,
+        "step_weight_bytes": wb,
+        "step_bound_ms": 1e3 * (wb + cfg.n_layers * kv_bytes)
+        / PEAK_BYTES_PER_S,
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
+    # Where a step goes: 4 decode steps under the profiler (from the last
+    # cache: kv_len 576, the write clamped at the last position).
+    prof_cache = _lm_clone(cache)
+    tok = torch.zeros((LM_BATCH, 1), dtype=torch.int64, device=dev)
+
+    def four_steps():
+        nonlocal prof_cache
+        for _ in range(4):
+            _, prof_cache = model.decode_step(tok, prof_cache)
+
+    four_steps()
+    before = _build.LAUNCHES["decode_attention"]
+    split = device_split(four_steps, ("decode_split", "decode_merge",
+                                      "gemv", "gemm"))
+    n_att = _build.LAUNCHES["decode_attention"] - before
+    att_us = split["device_us"]["decode_split"] \
+        + split["device_us"]["decode_merge"]
+    busy_us = sum(split["device_us"].values())
+    rec["profiled_4_steps"] = {
+        **split, "kernels_per_step": split["kernels"] / 4,
+        "device_us_per_step": busy_us / 4,
+        "busy_share": busy_us / 1e6 / split["wall_s"],
+        "decode_kernel_launches": n_att}
+    # The decode kernel alone at the model's shape (layer 0's cache).
+    q = torch.randn(LM_BATCH, cfg.n_heads, cfg.hd, generator=gen, device=dev)
+    k0, v0 = cache["k"][0], cache["v"][0]
+    kv_t = torch.full((), max_seq, dtype=torch.int64, device=dev)
+    bound_ms = 1e3 * kv_bytes / PEAK_BYTES_PER_S
+    model_shape = {
+        "B": LM_BATCH, "S": max_seq, "kv_len": max_seq, "H": cfg.n_heads,
+        "Hkv": cfg.n_kv, "D": cfg.hd,
+        "device_us_per_launch_in_step": att_us / max(n_att, 1),
+        "ms": cuda_ms(lambda: kops.decode_attention(q, k0, v0, kv_t)),
+        "device_ms": device_ms(lambda: kops.decode_attention(q, k0, v0,
+                                                             kv_t)),
+        "plain_ms": cuda_ms(lambda: decode_attention_torch(q, k0, v0, kv_t)),
+        "bytes": kv_bytes, "bound_ms": bound_ms, "bound_by": "bytes"}
+    rec["decode_kernel_at_model_shape"] = model_shape
+    out[LM_MAIN] = rec
+    del model, cache, prof_cache, k0, v0, batch
+    torch.cuda.empty_cache()
+
+    # ---- (b) the other nine at their published widths -------------------
+    for arch, cut in LM_CUTS:
+        cfg = get_config(arch).replace(**cut)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        gen = torch.Generator(device=dev).manual_seed(LM_SEED)
+        t0 = time.perf_counter()
+        model = LM(cfg, device=dev)
+        model.init(gen)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        batch = make_batch(cfg, gen, LM_OTHER_BATCH, LM_OTHER_PROMPT)
+        max_seq = LM_OTHER_PROMPT + LM_OTHER_STEPS + (
+            cfg.n_patches if cfg.family == "vlm" else 0)
+        moe = cfg.family == "moe"
+        rec = lm_serve_run(model, batch, LM_OTHER_PROMPT, LM_OTHER_STEPS,
+                           max_seq, forward=not moe)
+        rec.pop("cache")
+        if moe:
+            # GShard drops depend on the group's tokens and their order,
+            # which a prefill, a decode step and a forward do not share:
+            # the forward check runs on the same weights with a capacity
+            # that drops nothing (E / k), the serving run above at the
+            # published 1.25.
+            free = cfg.replace(capacity_factor=cfg.n_experts / cfg.top_k)
+            twin = LM(free, device=dev).load_params(model.params)
+            rec_f = lm_serve_run(twin, batch, LM_OTHER_PROMPT,
+                                 LM_OTHER_STEPS, max_seq)
+            rec_f.pop("cache")
+            rec["drop_free_capacity"] = rec_f
+            launches += rec_f["launches"]
+            rec["checks"].update({f"drop_free_{k}": v
+                                  for k, v in rec_f.pop("checks").items()})
+            del twin
+        launches += rec["launches"]
+        n_att = {"hybrid": cfg.n_layers // cfg.shared_attn_period, "ssm": 0,
+                 "encdec": 2 * cfg.n_layers}.get(cfg.family, cfg.n_layers)
+        rec["checks"]["launches"] = rec["launches"] == n_att * LM_OTHER_STEPS
+        checks.update({f"{arch}_{k}": v for k, v in rec.pop("checks").items()})
+        rec.update({"cut": cut, "n_layers": cfg.n_layers,
+                    "params": sum(p.numel() for p in model.parameters()),
+                    "init_s": init_s,
+                    "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
+        out[arch] = rec
+        del model, batch
+        torch.cuda.empty_cache()
+
+    out["decode_kernel_launches"] = launches
+    out["seconds"] = time.perf_counter() - t_phase
+    emit(out)
+    emit({"phase": "lm_serve_checks", **checks})
+    if not all(checks.values()):
+        raise AssertionError("lm_serve failed: " + ", ".join(
+            k for k, v in checks.items() if not v))
+    return {"launches": launches, "model_shape": model_shape}
+
+
+
 def main() -> int:
     import torch
 
@@ -4350,6 +4652,10 @@ def main() -> int:
     recovery_launches = ranks_recovery_phase(dev, gpu, lap, op, prec, b,
                                              solve_kw)
 
+    # ---- 23. the LM side path: prefill and decode ------------------------
+    lm = lm_serve_phase(dev, gpu)
+    timings["decode_attention"]["model_shape"] = lm["model_shape"]
+
     # ---- contract lines --------------------------------------------------
     src_dir = "src/repro_torch/kernels/csrc/"
     kernels = []
@@ -4385,8 +4691,7 @@ def main() -> int:
          "src/repro/kernels/fused_axpy.py:30",
          ep_launches.get("fused_axpy3", 0)),
         ("decode_attention", src_dir + "decode_attention.cu",
-         "src/repro/kernels/decode_attention.py:65",
-         ep_launches.get("decode_attention", 0)),
+         "src/repro/kernels/decode_attention.py:65", lm["launches"]),
     ] + [(name, src_dir + source, replaces, slab_launches.get(name, 0))
          for name, source, replaces in slab_kernels] + [
         ("fused_iter_halo_slab", src_dir + "fused_iter.cuh",
@@ -4410,7 +4715,9 @@ def main() -> int:
             "launches_checkpoint": ckpt_launches.get(name, 0),
             "launches_overlap": overlap_launches.get(name, 0),
             "launches_ranks_slab": rank_launches.get(name, 0),
-            "launches_ranks_recovery": recovery_launches.get(name, 0)})
+            "launches_ranks_recovery": recovery_launches.get(name, 0),
+            "launches_entry_points": ep_launches.get(name, 0),
+            "model_shape": t.get("model_shape")})
     for k in kernels:
         if k["launches"] == 0:
             raise AssertionError(f"{k['name']} was never launched on its path")

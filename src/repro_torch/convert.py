@@ -16,7 +16,9 @@ packages solve the identical system from the identical shifts:
 * the arrays of the JAX package's ``partitioned_solver_ops``
   (``{"op": ..., "prec": ...}``, as numpy) as the port's per-rank tensors
   (:func:`partitioned_arrays`), so both packages solve one sharded
-  problem.
+  problem;
+* an LM's parameter tree (``LM(cfg).init(key)``, as numpy) as the port's
+  (:func:`lm_params`), so both packages compute with the same weights.
 """
 
 from __future__ import annotations
@@ -153,3 +155,29 @@ def partitioned_arrays(arrays: dict, n_shards: int, device=None) -> list:
         return t.to(dev)
 
     return [block(arrays, r) for r in range(n_shards)]
+
+
+def lm_params(cfg, tree: dict, device=None) -> dict:
+    """The port's LM parameters from the JAX package's ``LM(cfg).init``
+    tree handed over as numpy arrays: the same nested keys, each leaf a
+    tensor of its dtype and shape on ``device`` (per-layer leaves stay
+    stacked on their leading L).  A tree of another config (embedding
+    table other than (vocab_padded, d_model), or layers not stacked
+    ``n_layers`` deep) raises.  Load the result with
+    ``LM(cfg, device).load_params``."""
+    dev = resolve_device(device)
+    table = np.shape(tree["embed"]["table"])
+    if table != (cfg.vocab_padded, cfg.d_model):
+        raise ValueError(f"embedding table {table} is not {cfg.name}'s "
+                         f"({cfg.vocab_padded}, {cfg.d_model})")
+
+    def leaf(a, depth=None):
+        if isinstance(a, dict):
+            return {k: leaf(v, depth) for k, v in a.items()}
+        if depth is not None and np.shape(a)[0] != depth:
+            raise ValueError(f"a layer leaf of shape {np.shape(a)} is not "
+                             f"stacked {depth} deep")
+        return torch.from_numpy(np.array(a)).to(dev)
+
+    depths = {"layers": cfg.n_layers, "enc_layers": cfg.n_enc_layers}
+    return {k: leaf(v, depths.get(k)) for k, v in tree.items()}
